@@ -5,21 +5,22 @@
 
 1. Device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions; TF32 off, so float32 products are full float32.
-2. Kernels: builds every CUDA source under src/repro_torch/kernels/csrc
-   with nvcc for sm_90a (set-up time) and holds the flash attention kernel
-   against its plain PyTorch version (``ref.attention_ref``) on the same
-   CUDA tensors, at the serving shape and at the edge cases.
-3. Times at the serving shape: kernel, plain version, and PyTorch's
-   ``scaled_dot_product_attention`` as a yardstick (timed only; the port
-   never calls it), beside the kernel's bound.
+2. Kernels: builds the flash attention kernel from
+   src/repro_torch/kernels/csrc with nvcc for sm_90a (set-up time) and
+   holds it against its plain PyTorch version (``ref.attention_ref``) on
+   the same CUDA tensors, at the serving shape and at the edge cases.
+3. Times at the serving shape, from the card's clock: kernel, plain
+   version, and PyTorch's ``scaled_dot_product_attention`` as a yardstick
+   (timed only; the port never calls it), beside the kernel's bound.
 4. Serve: smollm-135m at full width (30 layers, d_model 576, random
    weights from a seed) through ``ModelAPI`` + ``ServeEngine``, 2 rounds of
    batch 8, prompts of 256-512 tokens, max_seq 1024, 32 new tokens.  The
    launch counts are set to 0 just before and read just after: every
    prefill must launch the kernel once per layer.  Round 1's prefill
-   logits are recomputed with attention forced to the plain version, in
-   the served bf16 model and in a float32 copy of it.  A profiled warm
-   round gives the device's busy share and its largest kernels.
+   logits are recomputed with attention forced to the model's plain path
+   (``attention.chunked_attention``), in the served bf16 model and in a
+   float32 copy of it.  A profiled warm round gives the device's busy
+   share and its largest kernels.
 5. A JSON line per kernel, then ``{"ok": true, "device": ...}`` as the
    last line.
 
@@ -62,11 +63,12 @@ SERVE_SHAPE = dict(B=8, S=512, T=512, H=9, KV=3, hd=64)
 # f32: the two sum up to T = 512 terms in different orders; the worst
 # case is T * 2^-24 * max|v| ~ 1.2e-4 at |v| <= 4 (normal inputs).
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
-# Prefill logits, kernel vs plain attention, as relative L2 error and as
-# max error over the largest |logit|.  bf16 model: the two attention paths
-# agree to one bf16 ulp, but each flipped rounding is amplified through 30
-# layers of random weights (1.45e-2 relative L2 measured on an H100 80GB
-# HBM3 at 700 W), so the bound is loose and the f32 model carries the tight
+# Prefill logits, kernel vs the model's plain attention (chunked_attention,
+# which rounds the probabilities to bf16 before the PV product, as the JAX
+# path does), as relative L2 error and as max error over the largest
+# |logit|.  bf16 model: the two attention paths differ by about one bf16
+# ulp, but each flipped rounding is amplified through 30 layers of random
+# weights, so the bound is loose and the f32 model carries the tight
 # check: its attention outputs differ by f32 summation order only.
 LOGIT_TOL = {torch.bfloat16: 4e-2, torch.float32: 1e-3}
 
@@ -88,23 +90,33 @@ def sync() -> None:
     torch.cuda.synchronize()
 
 
-def time_ms(fn, iters: int = 20, reps: int = 7) -> float:
-    """Median over ``reps`` of the mean time of ``iters`` back-to-back
-    calls, by CUDA events, after a warm-up."""
-    for _ in range(3):
-        fn()
+def time_ms(fn, iters: int = 20, reps: int = 7) -> list:
+    """Device times of one call of ``fn``: ``iters`` calls captured in one
+    CUDA graph, replayed ``reps`` times between CUDA events; each replay's
+    time over ``iters``, sorted.  A replay issues nothing from the host
+    between the calls, so the time is the card's and not Python's."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):                  # warm-up outside the capture
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
     sync()
     times = []
     for _ in range(reps):
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
-        for _ in range(iters):
-            fn()
+        graph.replay()
         e1.record()
         e1.synchronize()
         times.append(e0.elapsed_time(e1) / iters)
-    return statistics.median(times)
+    return sorted(times)
 
 
 def attn_inputs(seed, B, S, T, H, KV, hd, dtype):
@@ -123,12 +135,8 @@ def phase_device():
 
 def phase_build():
     t0 = time.perf_counter()
-    libs = build.build_all()
-    print(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
-    for name in libs:
-        for line in build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {name}: {line.strip()}")
+    build.load("flash_attention")
+    print(f"built flash_attention in {time.perf_counter() - t0:.1f} s")
 
 
 def phase_kernel_vs_plain():
@@ -176,28 +184,32 @@ def phase_times():
     lib_err = (library().transpose(1, 2).float()
                - ref.attention_ref(q, k, v).float()).abs().max().item()
     # plain, kernel, kernel, plain: drift on the card falls on both sides
-    plain = [time_ms(lambda: ref.attention_ref(q, k, v))]
-    kern = [time_ms(lambda: ops.flash_attention(q, k, v))]
-    kern.append(time_ms(lambda: ops.flash_attention(q, k, v)))
-    plain.append(time_ms(lambda: ref.attention_ref(q, k, v)))
-    lib_ms = time_ms(library)
+    plain = time_ms(lambda: ref.attention_ref(q, k, v))
+    kern = time_ms(lambda: ops.flash_attention(q, k, v))
+    kern += time_ms(lambda: ops.flash_attention(q, k, v))
+    plain += time_ms(lambda: ref.attention_ref(q, k, v))
+    lib = time_ms(library)
     nbytes = sum(x.numel() * x.element_size() for x in (q, k, v, q))
     flops = 4 * B * H * S * T * hd * 0.5          # causal: half the pairs
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
     bound_ms = max(t_bytes, t_ops) * 1e3
     bound_by = "bytes" if t_bytes >= t_ops else "operations"
-    ms, plain_ms = statistics.median(kern), statistics.median(plain)
-    print(f"times at {tuple(q.shape)} bf16 causal: kernel {kern} ms, "
-          f"plain {plain} ms, library (sdpa) {lib_ms!r} ms "
-          f"(max_abs_err vs plain {lib_err!r}); bound {bound_ms!r} ms by "
-          f"{bound_by} ({nbytes} bytes, {flops:.0f} flop); kernel at "
-          f"{bound_ms / ms:.4f} of the bound")
+    ms, plain_ms, lib_ms = (statistics.median(t) for t in (kern, plain, lib))
+
+    def spread(t):
+        return (f"median {statistics.median(t)!r} (min {min(t)!r}, max "
+                f"{max(t)!r} over {len(t)} graph replays)")
+    print(f"times at {tuple(q.shape)} bf16 causal, ms per call: kernel "
+          f"{spread(kern)}, plain {spread(plain)}, library (sdpa) "
+          f"{spread(lib)} (max_abs_err vs plain {lib_err!r}); bound "
+          f"{bound_ms!r} ms by {bound_by} ({nbytes} bytes, {flops:.0f} "
+          f"flop); kernel at {bound_ms / ms:.4f} of the bound")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=lib_ms)
 
 
 def plain_attend(q, k, v, cfg, causal, window):
-    return ref.attention_ref(q, k, v, causal=causal, window=window)
+    return attention.chunked_attention(q, k, v, causal=causal, window=window)
 
 
 def phase_serve():
@@ -238,7 +250,8 @@ def phase_serve():
           "served tokens out of [0, vocab) or missing")
 
     # the first round's prefill again: through the kernel and with attention
-    # forced to the plain version, in the served bf16 model and an f32 copy
+    # forced to the model's plain path, in the served bf16 model and an f32
+    # copy
     padded = torch.from_numpy(pad_prompts(rounds[0], batch)).cuda()
     api32 = ModelAPI(dataclasses.replace(cfg, dtype="float32"), "cuda")
     api32.model.load_state_dict(api.model.state_dict())
@@ -261,7 +274,7 @@ def phase_serve():
         agree = (a[:, -1].argmax(-1) == b[:, -1].argmax(-1)).sum().item()
         tol = LOGIT_TOL[m.model.cdtype]
         print(f"round 0 prefill logits, {str(m.model.cdtype)[6:]} model, "
-              f"kernel vs plain attention: rel L2 {rel_l2!r}, max |diff| / "
+              f"kernel vs chunked_attention: rel L2 {rel_l2!r}, max |diff| / "
               f"max |logit| {rel_max!r} (tol {tol} each), max |logit| "
               f"{b.abs().max().item()!r}, argmax agrees on {agree}/{batch}")
         check(rel_l2 <= tol and rel_max <= tol,

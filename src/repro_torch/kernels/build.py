@@ -4,10 +4,9 @@ Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own
 with ``nvcc`` for ``sm_90a`` into ``_build/<name>-<hash>.so`` inside this
 package (``.gitignore`` lists it).  The hash is of the source and the
 flags, so an edited source is rebuilt and never served stale.  Nothing is
-built at import: the first ``load(name)`` builds, and ``build_all()``
-builds every source at once, one ``nvcc`` process each, all started
-together.  A failed build raises with the compiler's output.  There is no
-prebuilt fallback: only the repository's sources are compiled.
+built at import: the first ``load(name)`` builds.  A failed build raises
+with the compiler's output.  There is no prebuilt fallback: only the
+repository's sources are compiled.
 """
 
 from __future__ import annotations
@@ -18,19 +17,14 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
-
-
-def sources() -> List[str]:
-    """Names of every kernel source under ``csrc/``."""
-    return sorted(p.stem for p in CSRC.glob("*.cu"))
 
 
 def nvcc() -> str:
@@ -50,59 +44,23 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
-def _start(name: str):
-    out = library_path(name)
-    if out.exists():
-        return None
-    compiler = nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [compiler, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
-    return proc, tmp, out
-
-
-def _finish(name: str, job) -> None:
-    proc, tmp, out = job
-    log, _ = proc.communicate()
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed to build {name} "
-                           f"(exit {proc.returncode}):\n{log}")
-    out.with_suffix(".log").write_text(log)
-    os.replace(tmp, out)        # atomic: a concurrent build sees all or none
-
-
-def build_all() -> Dict[str, Path]:
-    """Compile every source that is not built yet, all in parallel; return
-    each source's library path."""
-    jobs = {name: _start(name) for name in sources()}
-    errors = []
-    for name, job in jobs.items():
-        if job is None:
-            continue
-        try:
-            _finish(name, job)
-        except RuntimeError as e:           # wait for every nvcc first
-            errors.append(str(e))
-    if errors:
-        raise RuntimeError("\n\n".join(errors))
-    return {name: library_path(name) for name in jobs}
-
-
-def build_log(name: str) -> str:
-    """What nvcc (with ``-Xptxas -v``: registers, shared memory, spills)
-    printed when it built ``name``."""
-    return library_path(name).with_suffix(".log").read_text()
-
-
 def load(name: str) -> ctypes.CDLL:
     """The built library of ``csrc/<name>.cu``, building it on first use."""
     lib = _loaded.get(name)
     if lib is None:
-        job = _start(name)
-        if job is not None:
-            _finish(name, job)
-        lib = _loaded[name] = ctypes.CDLL(str(library_path(name)))
+        out = library_path(name)
+        if not out.exists():
+            compiler = nvcc()
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            proc = subprocess.run(
+                [compiler, *NVCC_FLAGS, "-o", str(tmp),
+                 str(CSRC / f"{name}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            if proc.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                raise RuntimeError(f"nvcc failed to build {name} (exit "
+                                   f"{proc.returncode}):\n{proc.stdout}")
+            os.replace(tmp, out)    # atomic: others see all or none
+        lib = _loaded[name] = ctypes.CDLL(str(out))
     return lib

@@ -25,8 +25,7 @@ def attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
         mask &= kpos <= qpos
     if window:
         mask &= kpos > qpos - window
-    s = torch.where(mask[None, :, None, None, :], s,
-                    torch.tensor(NEG_INF, dtype=s.dtype, device=s.device))
+    s = torch.where(mask[None, :, None, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bskgt,btkh->bskgh", p, v.float())
     return o.reshape(B, S, H, hd).to(q.dtype)

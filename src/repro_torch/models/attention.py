@@ -1,8 +1,10 @@
 """GQA attention: prefill through the hand-written flash kernel, decode in
 plain PyTorch over a preallocated KV cache updated in place.
 
-``chunked_attention`` is the JAX package's chunked online-softmax path,
-kept in plain PyTorch as the model's reference for the kernel's math.
+``chunked_attention`` is the JAX package's chunked online-softmax path
+(its default ``attention_impl="xla"``) in plain PyTorch: the model's
+plain reference, with which ``chip_smoke.py`` recomputes a served prefill
+in place of the kernel.
 """
 
 from __future__ import annotations
