@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own
 with ``nvcc`` for ``sm_90a`` into ``_build/<name>-<hash>.so`` inside this
 package (``.gitignore`` lists it).  The hash is of the source and the
 flags, so an edited source is rebuilt and never served stale.  Nothing is
-built at import: the first ``load(name)`` builds.  A failed build raises
+built at import: the first ``load(name)`` builds, or ``build_all`` builds
+several sources at once, one ``nvcc`` each.  A failed build raises
 with the compiler's output.  There is no prebuilt fallback: only the
 repository's sources are compiled.
 """
@@ -16,8 +17,11 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -44,23 +48,44 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
+def _compile(name: str) -> None:
+    """Compile ``csrc/<name>.cu`` unless its library exists; raises with
+    the compiler's output if nvcc fails."""
+    out = library_path(name)
+    if out.exists():
+        return
+    compiler = nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+    proc = subprocess.run(
+        [compiler, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed to build {name} (exit "
+                           f"{proc.returncode}):\n{proc.stdout}")
+    os.replace(tmp, out)    # atomic: others see all or none
+
+
 def load(name: str) -> ctypes.CDLL:
     """The built library of ``csrc/<name>.cu``, building it on first use."""
     lib = _loaded.get(name)
     if lib is None:
-        out = library_path(name)
-        if not out.exists():
-            compiler = nvcc()
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            proc = subprocess.run(
-                [compiler, *NVCC_FLAGS, "-o", str(tmp),
-                 str(CSRC / f"{name}.cu")],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            if proc.returncode != 0:
-                tmp.unlink(missing_ok=True)
-                raise RuntimeError(f"nvcc failed to build {name} (exit "
-                                   f"{proc.returncode}):\n{proc.stdout}")
-            os.replace(tmp, out)    # atomic: others see all or none
-        lib = _loaded[name] = ctypes.CDLL(str(out))
+        _compile(name)
+        lib = _loaded[name] = ctypes.CDLL(str(library_path(name)))
     return lib
+
+
+def build_all(names: Sequence[str]) -> Dict[str, float]:
+    """Build and load several sources with one nvcc each, all running
+    together (``subprocess.run`` releases the GIL); returns each one's
+    seconds from the common start until its library was loaded.  Raises
+    the first failure."""
+    t0 = time.perf_counter()
+
+    def timed_load(name: str) -> float:
+        load(name)
+        return time.perf_counter() - t0
+
+    with ThreadPoolExecutor(max(len(names), 1)) as pool:
+        return dict(zip(names, pool.map(timed_load, names)))

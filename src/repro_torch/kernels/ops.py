@@ -3,25 +3,37 @@
 The tensor's device decides the path: a CUDA tensor launches the kernel
 (or raises), a CPU tensor takes the plain PyTorch version in ``ref.py``.
 There is no environment override and no fallback from CUDA to the plain
-version.  Inputs are validated the same way on both devices, so a call
+version.  Empty outputs launch nothing on either device, and so does one
+case with a non-empty output: a sentinel gather from an empty source,
+where every index is a miss.  As in the TPU wrapper (``_sentinel_gather``
+of ``src/repro/kernels/relational.py``), it is answered with a tensor of
+the fill made by ``torch.full`` on the card, and counts no launch.  Inputs are validated the same way on both devices, so a call
 that the kernel would refuse also fails on the CPU.
 
 ``launch_counts`` holds one plain integer per kernel, raised by one where
 the wrapper launches that kernel and nowhere else; a run sets them to 0
 (``reset_launch_counts``) and reads them afterwards to show that its path
-went through the kernels.
+went through the kernels.  There is one count per kernel, named after
+the function the main path calls it through: ``combine_hashes`` also
+counts the fused ``hash_keys`` fold, and ``filter_join_gather`` also
+counts ``gather_payload``, which share those kernels.
+
+The relational wrappers take and return tensors: 64-bit hashes and uint64
+sums travel as int64 tensors that carry the uint64 bits.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import torch
 
-from . import ref
+from . import ref, relational
 from .flash_attention import DTYPES, SUPPORTED_HD, flash_attention_cuda
 
-launch_counts: Dict[str, int] = {"flash_attention": 0}
+launch_counts: Dict[str, int] = {
+    "flash_attention": 0, "hash_fixed": 0, "combine_hashes": 0,
+    "filter_join_gather": 0, "segreduce": 0}
 
 
 def reset_launch_counts() -> None:
@@ -80,3 +92,211 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     out = flash_attention_cuda(q, k, v, causal=causal, window=window)
     launch_counts["flash_attention"] += 1
     return out
+
+
+# --------------------------------------------------------------------------
+# relational kernels (splitmix64.cu, sentinel_gather.cu, segreduce.cu)
+# --------------------------------------------------------------------------
+
+INT_DTYPES = (torch.int8, torch.int16, torch.int32, torch.int64,
+              torch.uint8, torch.uint16, torch.uint32, torch.uint64)
+#: what hash_fixed and the gathers take: every 1/2/4/8-byte dtype that a
+#: numpy column can have
+FIXED_DTYPES = INT_DTYPES + (torch.bool, torch.float16, torch.float32,
+                             torch.float64)
+#: what the segment reducers take: float reductions are order-sensitive
+#: and never reach the kernel (core.kdispatch.REGISTRY)
+REDUCE_DTYPES = INT_DTYPES + (torch.bool,)
+
+
+def _on_cuda(*ts: torch.Tensor) -> bool:
+    """True for CUDA tensors, False for CPU ones; raises for a mix or for
+    another device."""
+    dev = ts[0].device
+    if any(t.device != dev for t in ts):
+        raise ValueError(f"tensors on different devices: "
+                         f"{[str(t.device) for t in ts]}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel for device {dev}")
+    return dev.type == "cuda"
+
+
+def _check_1d(name: str, t: torch.Tensor, dtypes) -> None:
+    if t.dim() != 1 or not t.is_contiguous():
+        raise ValueError(f"{name}: a contiguous 1-D tensor expected, got "
+                         f"shape {tuple(t.shape)} strides {t.stride()}")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name}: dtype {t.dtype} not supported "
+                        f"(supported: {dtypes})")
+
+
+def hash_fixed(x: torch.Tensor) -> torch.Tensor:
+    """uint64 splitmix64 hash of each element's bit pattern (float -0.0
+    hashed as +0.0, NaN payloads kept, narrow widths zero-extended), as an
+    int64 tensor of the same length carrying the uint64 bits
+    (``vkernels.hash_fixed``)."""
+    _check_1d("hash_fixed", x, FIXED_DTYPES)
+    cuda = _on_cuda(x)
+    if x.numel() == 0:
+        return torch.empty(0, dtype=torch.int64, device=x.device)
+    if not cuda:
+        return ref.hash_fixed_ref(x)
+    out = relational.hash_fixed_cuda(x)
+    launch_counts["hash_fixed"] += 1
+    return out
+
+
+def combine_hashes(cols: torch.Tensor, mix_first: bool = False
+                   ) -> torch.Tensor:
+    """Ordered fold of the rows of an int64 (ncols, n) tensor of 64-bit
+    words into one int64 row hash per column position
+    (``vkernels.combine_hashes``); ``mix_first`` takes raw prepared bits
+    and hashes each row first (the fused ``vkernels.hash_keys``)."""
+    if cols.dim() != 2 or cols.dtype != torch.int64 \
+            or not cols.is_contiguous():
+        raise ValueError(f"combine_hashes: a contiguous int64 (ncols, n) "
+                         f"tensor expected, got {cols.dtype} "
+                         f"{tuple(cols.shape)} strides {cols.stride()}")
+    cuda = _on_cuda(cols)
+    if cols.shape[1] == 0:
+        return torch.empty(0, dtype=torch.int64, device=cols.device)
+    if not cuda:
+        return ref.combine_ref(cols, mix_first)
+    out = relational.combine_cuda(cols, mix_first)
+    launch_counts["combine_hashes"] += 1
+    return out
+
+
+def _fill_word(fill, dtype: torch.dtype) -> int:
+    """The bits of ``fill`` in ``dtype``, as a signed integer of its width."""
+    w = dtype.itemsize
+    if dtype.is_floating_point or dtype == torch.bool:
+        return int(torch.tensor([fill], dtype=dtype).view(ref.SIGNED[w])[0])
+    info = torch.iinfo(dtype)
+    if not info.min <= fill <= info.max:
+        raise OverflowError(f"fill {fill} out of bounds for {dtype}")
+    return fill - (1 << 8 * w) if fill >= 1 << (8 * w - 1) else fill
+
+
+def _sentinel_gather(src: torch.Tensor, idx: torch.Tensor,
+                     fill) -> torch.Tensor:
+    _check_1d("sentinel gather src", src, FIXED_DTYPES)
+    _check_1d("sentinel gather idx", idx, (torch.int64,))
+    cuda = _on_cuda(src, idx)
+    m, w = idx.numel(), src.element_size()
+    fill = _fill_word(fill, src.dtype)
+    if m == 0:
+        return torch.empty(0, dtype=src.dtype, device=src.device)
+    lo, hi = torch.stack(torch.aminmax(idx)).tolist()     # one sync
+    if lo < -1 or hi >= src.numel():
+        raise IndexError(f"sentinel gather: index range [{lo}, {hi}] "
+                         f"outside [-1, {src.numel()})")
+    if not cuda or src.numel() == 0:   # empty src: all misses, see above
+        return ref.sentinel_gather_ref(src, idx, fill)
+    out = relational.sentinel_gather_cuda(src, idx,
+                                          fill & ((1 << 8 * w) - 1))
+    launch_counts["filter_join_gather"] += 1
+    return out
+
+
+def filter_join_gather(sel: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Compose a selection with join gather indices, ``-1`` miss sentinels
+    preserved: out[i] = sel[idx[i]] or -1 (``vkernels.filter_join_gather``).
+    Both int64; raises IndexError for an index outside [-1, len(sel))."""
+    _check_1d("filter_join_gather sel", sel, (torch.int64,))
+    return _sentinel_gather(sel, idx, -1)
+
+
+def gather_payload(values: torch.Tensor, idx: torch.Tensor,
+                   fill=0) -> torch.Tensor:
+    """out[i] = values[idx[i]], or ``fill`` (in values' dtype) where
+    idx[i] == -1; bits are copied, so NaN payloads survive."""
+    return _sentinel_gather(values, idx, fill)
+
+
+def _segreduce(op: str, values: Optional[torch.Tensor], order: torch.Tensor,
+               starts: torch.Tensor, valid: Optional[torch.Tensor]
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    _check_1d(f"grouped_{op} order", order, (torch.int64,))
+    _check_1d(f"grouped_{op} starts", starts, (torch.int64,))
+    ts = [order, starts]
+    n, G = order.numel(), starts.numel()
+    if values is not None:
+        _check_1d(f"grouped_{op} values", values, REDUCE_DTYPES)
+        ts.append(values)
+    if valid is not None:
+        _check_1d(f"grouped_{op} valid", valid, (torch.bool,))
+        ts.append(valid)
+    if any(t.numel() != n for t in ts[2:]):
+        raise ValueError(f"grouped_{op}: values/valid of length "
+                         f"{[t.numel() for t in ts[2:]]} != {n} rows")
+    cuda = _on_cuda(*ts)
+    if G == 0:
+        return (torch.empty(0, dtype=torch.int64, device=order.device),
+                torch.empty(0, dtype=torch.int64, device=order.device))
+    # the kernel's memory safety rests on these: one sync for all of them
+    bad = n == 0
+    if not bad:
+        lo, hi = torch.aminmax(order)
+        bad = (starts[0] != 0) | (starts[-1] >= n) | (lo < 0) | (hi >= n) \
+            | (starts[1:] <= starts[:-1]).any()
+    if bool(bad):
+        raise ValueError(f"grouped_{op}: starts must begin at 0 and rise "
+                         f"strictly below n={n}, and order must lie in "
+                         f"[0, n)")
+    if not cuda:
+        return ref.segreduce_ref(op, values, order, starts, valid)
+    out = relational.segreduce_cuda(op, values, order, starts, valid)
+    launch_counts["segreduce"] += 1
+    return out
+
+
+def _extreme_dtype(values: torch.Tensor) -> torch.dtype:
+    return torch.uint8 if values.dtype == torch.bool else values.dtype
+
+
+def _narrow(acc: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """64-bit result words -> ``dtype`` (the values fit; the bits of the
+    low ``dtype``-wide part are kept)."""
+    return acc.to(ref.SIGNED[dtype.itemsize]).view(dtype)
+
+
+def grouped_count(order: torch.Tensor, starts: torch.Tensor,
+                  valid: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-group count of non-null rows over sorted group ranges
+    (``vkernels.grouped_count``): (counts, counts), int64."""
+    _, counts = _segreduce("count", None, order, starts, valid)
+    return counts, counts
+
+
+def grouped_sum(values: torch.Tensor, order: torch.Tensor,
+                starts: torch.Tensor, valid: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-group wrapping sum over non-null rows, integer/bool values
+    (``vkernels.grouped_sum``): (sums int64, or uint64 for uint64 values;
+    counts int64)."""
+    acc, counts = _segreduce("sum", values, order, starts, valid)
+    if values.dtype == torch.uint64:
+        acc = acc.view(torch.uint64)
+    return acc, counts
+
+
+def grouped_min(values: torch.Tensor, order: torch.Tensor,
+                starts: torch.Tensor, valid: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-group min over non-null rows, integer/bool values, the type's
+    max for an all-null group (``vkernels.grouped_min``): (mins in the
+    values' dtype, uint8 for bool; counts int64)."""
+    acc, counts = _segreduce("min", values, order, starts, valid)
+    return _narrow(acc, _extreme_dtype(values)), counts
+
+
+def grouped_max(values: torch.Tensor, order: torch.Tensor,
+                starts: torch.Tensor, valid: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-group max over non-null rows, integer/bool values, the type's
+    min for an all-null group (``vkernels.grouped_max``): (maxs in the
+    values' dtype, uint8 for bool; counts int64)."""
+    acc, counts = _segreduce("max", values, order, starts, valid)
+    return _narrow(acc, _extreme_dtype(values)), counts

@@ -1,13 +1,19 @@
-"""The hand-written CUDA flash attention kernel against its plain version
-on the card, at the shapes of tests/test_torch_kernels.py, in float32 and
-bfloat16.  Skips without a CUDA card; run it there with
+"""The hand-written CUDA kernels against their plain versions on the card:
+flash attention at the shapes of tests/test_torch_kernels.py, in float32
+and bfloat16; the relational kernels (splitmix64, sentinel gather, segment
+reductions) bit for bit over every dtype family and edge case, and the
+relational ops on the card against the same ops on the CPU.  Skips without
+a CUDA card; run it there with
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.core import kdispatch, ops as rops  # noqa: E402
+from repro_torch.core.arrow import Table  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 
 pytestmark = pytest.mark.gpu
@@ -59,3 +65,178 @@ def test_kernel_reads_strided_inputs(cuda):
     out = ops.flash_attention(q, k, v)
     torch.testing.assert_close(out, ref.attention_ref(q, k, v), rtol=2e-5,
                                atol=2e-5)
+
+
+# --------------------------------------------------------------------------
+# relational kernels: bit for bit against their plain versions
+# --------------------------------------------------------------------------
+
+FIXED = [np.int8, np.int16, np.int32, np.int64, np.uint8, np.uint16,
+         np.uint32, np.uint64, np.float16, np.float32, np.float64, np.bool_]
+INTS = [d for d in FIXED if np.dtype(d).kind in "iub"]
+SIZES = [1, 7, 2048 + 3, 100_003]       # not multiples of a block or tile
+
+
+def fixed_array(rng, n, dtype):
+    """Values of ``dtype`` over its whole bit range; floats mix in -0.0,
+    +0.0, infinities and NaNs of two payloads (as in
+    tests/test_torch_relational.py, which imports jax and so cannot be
+    imported here)."""
+    dt = np.dtype(dtype)
+    if dt.kind == "b":
+        return rng.random(n) < 0.5
+    if dt.kind == "f":
+        a = rng.standard_normal(n).astype(dt)
+        specials = np.array([-0.0, 0.0, np.inf, -np.inf, np.nan], dt)
+        pick = rng.random(n) < 0.3
+        a[pick] = specials[rng.integers(0, 5, int(pick.sum()))]
+        nan2 = np.array([np.nan], dt).view(f"u{dt.itemsize}") | 1
+        a.view(f"u{dt.itemsize}")[rng.random(n) < 0.05] = nan2
+        return a
+    return rng.integers(0, 256, n * dt.itemsize, dtype=np.uint8).view(dt)
+
+
+def to_cuda(a):
+    """A numpy array on the card, as ``core.kdispatch`` moves it."""
+    return kdispatch._to_tensor(np.asarray(a), torch.device("cuda"))
+
+
+def bits(t):
+    return t.view(ref.SIGNED[t.element_size()]) if t.dtype != torch.bool \
+        else t.view(torch.int8)
+
+
+def assert_same_bits(got, want):
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.equal(bits(got), bits(want))
+
+
+@pytest.mark.parametrize("n", SIZES)
+@pytest.mark.parametrize("dtype", FIXED, ids=lambda d: np.dtype(d).name)
+def test_hash_fixed_matches_plain(cuda, dtype, n):
+    x = to_cuda(fixed_array(np.random.default_rng(n), n, dtype))
+    before = ops.launch_counts["hash_fixed"]
+    got = ops.hash_fixed(x)
+    assert ops.launch_counts["hash_fixed"] == before + 1
+    assert_same_bits(got, ref.hash_fixed_ref(x))
+
+
+@pytest.mark.parametrize("mix_first", [False, True])
+@pytest.mark.parametrize("ncols", [0, 1, 3])
+@pytest.mark.parametrize("n", SIZES)
+def test_combine_matches_plain(cuda, ncols, n, mix_first):
+    rng = np.random.default_rng(ncols * 10 + n)
+    cols = to_cuda(rng.integers(-(1 << 63), (1 << 63) - 1, (ncols, n),
+                                dtype=np.int64))
+    before = ops.launch_counts["combine_hashes"]
+    got = ops.combine_hashes(cols, mix_first)
+    assert ops.launch_counts["combine_hashes"] == before + 1
+    assert_same_bits(got, ref.combine_ref(cols, mix_first))
+
+
+@pytest.mark.parametrize("nsrc", [1, 5, 100_003])
+@pytest.mark.parametrize("dtype", FIXED, ids=lambda d: np.dtype(d).name)
+def test_gather_matches_plain(cuda, dtype, nsrc):
+    rng = np.random.default_rng(nsrc)
+    src = to_cuda(fixed_array(rng, nsrc, dtype))
+    idx = to_cuda(rng.integers(-1, nsrc, 2048 + 3).astype(np.int64))
+    fill = np.nan if np.dtype(dtype).kind == "f" else 1
+    got = ops.gather_payload(src, idx, fill)
+    want = ref.sentinel_gather_ref(src, idx, ops._fill_word(fill, src.dtype))
+    assert_same_bits(got, want)
+
+
+def test_gather_edges(cuda):
+    before = ops.launch_counts["filter_join_gather"]
+    empty = torch.empty(0, dtype=torch.int64, device="cuda")
+    misses = torch.full((9,), -1, dtype=torch.int64, device="cuda")
+    assert ops.filter_join_gather(empty, misses).tolist() == [-1] * 9
+    assert ops.filter_join_gather(misses, empty).numel() == 0
+    assert ops.launch_counts["filter_join_gather"] == before    # no launch
+    sel = torch.arange(10, 20, device="cuda")
+    got = ops.filter_join_gather(sel, torch.tensor([3, -1, 0, 9],
+                                                   device="cuda"))
+    assert got.tolist() == [13, -1, 10, 19]
+    with pytest.raises(IndexError):
+        ops.filter_join_gather(sel, torch.tensor([10], device="cuda"))
+
+
+def segments(rng, n, n_groups):
+    """(order, starts) of ``vkernels.group_ranges`` over random codes."""
+    from repro_torch.core import vkernels
+    codes = rng.integers(0, n_groups, n) if n_groups > 1 \
+        else np.zeros(n, np.int64)
+    return vkernels.group_ranges([codes])
+
+
+@pytest.mark.parametrize("nulls", [False, True])
+@pytest.mark.parametrize("n,n_groups", [(1, 1), (2048 + 3, 1),
+                                        (100_003, 26), (300_000, 150_000)])
+@pytest.mark.parametrize("dtype", INTS, ids=lambda d: np.dtype(d).name)
+def test_segreduce_matches_plain(cuda, dtype, n, n_groups, nulls):
+    rng = np.random.default_rng(n + n_groups)
+    order, starts = segments(rng, n, n_groups)
+    vals = to_cuda(fixed_array(rng, n, dtype))
+    order, starts = to_cuda(order), to_cuda(starts)
+    valid = to_cuda(rng.random(n) < 0.7) if nulls else None
+    for op, fn in (("sum", ops.grouped_sum), ("min", ops.grouped_min),
+                   ("max", ops.grouped_max)):
+        before = ops.launch_counts["segreduce"]
+        got, counts = fn(vals, order, starts, valid)
+        assert ops.launch_counts["segreduce"] == before + 1
+        acc, want_counts = ref.segreduce_ref(op, vals, order, starts, valid)
+        want = acc.view(got.dtype) if op == "sum" \
+            else ops._narrow(acc, got.dtype)
+        assert_same_bits(got, want)
+        assert_same_bits(counts, want_counts)
+    counts, _ = ops.grouped_count(order, starts, valid)
+    assert_same_bits(counts, ref.segreduce_ref("count", None, order, starts,
+                                               valid)[1])
+
+
+def test_segreduce_uint64_sum_wraps(cuda):
+    vals = to_cuda(np.array([2 ** 64 - 1, 2, 2 ** 63, 2 ** 63, 5],
+                            dtype=np.uint64))
+    order = to_cuda(np.arange(5, dtype=np.int64))
+    starts = to_cuda(np.array([0, 2], dtype=np.int64))
+    sums, counts = ops.grouped_sum(vals, order, starts)
+    torch.cuda.synchronize()
+    assert sums.view(torch.int64).tolist() == [1, 5]      # both wrap
+    assert counts.tolist() == [2, 3]
+
+
+def test_self_check_on_the_card(cuda):
+    with kdispatch.using_device("cuda"):
+        res = kdispatch.self_check()
+    assert all(v == "ok" or v.startswith("ineligible") for v in res.values())
+
+
+def star_tables(seed, n_orders, n_cust):
+    rng = np.random.default_rng(seed)
+    nations = [f"nation{i:02d}" for i in range(25)]
+    orders = {"cust": rng.integers(0, int(n_cust * 1.1), n_orders),
+              "amount": rng.integers(0, 1_000_000, n_orders)}
+    cust = {"cust": np.arange(n_cust, dtype=np.int64),
+            "country": [nations[i % 25] for i in range(n_cust)]}
+    return Table.from_pydict(orders), Table.from_pydict(cust)
+
+
+def raw_buffers(t):
+    b = t.combine().batches[0]
+    return [(f.name, f.type, c.values.dtype, c.values.tobytes(),
+             None if c.offsets is None else c.offsets.tobytes(),
+             None if c.validity is None else c.validity.tobytes())
+            for f, c in zip(b.schema.fields, b.columns)]
+
+
+def test_star_query_on_the_card_equals_the_cpu(cuda):
+    orders, cust = star_tables(0, 200_000, 20_000)
+    aggs = {"total": ("amount", "sum"), "lo": ("amount", "min"),
+            "hi": ("amount", "max"), "n": ("amount", "count")}
+    out = {}
+    for dev in ("cuda", "cpu"):
+        with kdispatch.using_device(dev):
+            j = rops.join(orders, cust, "cust", how="left")
+            out[dev] = raw_buffers(rops.group_by(j, "country", aggs))
+    assert out["cuda"] == out["cpu"]

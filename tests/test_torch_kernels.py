@@ -116,7 +116,7 @@ def test_cpu_calls_leave_the_launch_count_at_zero():
     ops.reset_launch_counts()
     arrays = inputs(2, 1, 64, 64, 2, 1, 16)
     port(ops.flash_attention, arrays, causal=True)
-    assert ops.launch_counts == {"flash_attention": 0}
+    assert set(ops.launch_counts.values()) == {0}
 
 
 def test_other_devices_get_no_fallback():
