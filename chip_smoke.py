@@ -13,14 +13,14 @@
    beside PyTorch's ``scaled_dot_product_attention`` (timed only; the port
    never calls it) and the kernel's bound.
 4. Serve: smollm-135m at full width (30 layers, d_model 576, random
-   weights from a seed) through ``ModelAPI`` + ``ServeEngine``, 2 rounds of
-   batch 8, prompts of 256-512 tokens, max_seq 1024, 32 new tokens.  The
-   launch counts are set to 0 just before and read just after: every
-   prefill must launch the kernel once per layer.  Round 1's prefill
-   logits are recomputed with attention forced to the model's plain path
-   (``attention.chunked_attention``), in the served bf16 model and in a
-   float32 copy of it.  A profiled warm round gives the device's busy
-   share and its largest kernels.
+   weights drawn on the card from a seeded CUDA generator) through
+   ``ModelAPI`` + ``ServeEngine``, 2 rounds of batch 8, prompts of 256-512
+   tokens, max_seq 1024, 32 new tokens.  The launch counts are set to 0
+   just before and read just after: every prefill must launch the kernel
+   once per layer.  Round 0's prefill logits are recomputed with attention
+   forced to the model's plain path (``attention.chunked_attention``), in
+   bf16 and with the same weights computing in float32.  A profiled warm
+   round gives the device's busy share and its largest kernels.
 5. Relational kernels (splitmix64 hash and fold, sentinel gather, segment
    reductions): each wrapper against its plain PyTorch version on the
    same CUDA tensors, bit for bit, over every dtype family and edge case;
@@ -38,8 +38,33 @@
    device; every output buffer must agree bit for bit, and the group
    totals must equal a numpy recount.  A profiled cuda run gives the
    device's busy share and the time spent at the kdispatch edge.
-7. A JSON line per kernel, then ``{"ok": true, "device": ...}`` as the
-   last line.
+7. Recurrent kernels (WKV-6 and RG-LRU scans) and flash attention at hd
+   256 with a 2048-token window: each against its plain PyTorch version on
+   the same CUDA tensors over ragged lengths, widths, head sizes, dtypes,
+   initial states and decays; then timed at the serving shapes of the two
+   models below from CUDA-graph replays, beside the plain version, the
+   bound and, for attention, ``scaled_dot_product_attention``.
+8. Serve rwkv6-3b at full width (32 layers, d_model 2560, 40 heads of 64,
+   random weights drawn on the card from a seeded CUDA generator): 2 rounds
+   of batch 8, prompts of 256-512 tokens, max_seq 1024, 32 new tokens; 32
+   ``wkv6`` launches per prefill.  Round 0's prefill logits are recomputed
+   with ``ops.wkv6`` swapped for its plain version, in bf16 and with the
+   same weights computing in float32; every wkv6 launch of one more
+   prefill is held to the plain version on its own inputs; in float32, one
+   decode step after S tokens is held against a prefill of S + 1 tokens.
+   A profiled warm round.
+9. Serve recurrentgemma-9b at full width (12 groups of (rec, rec, attn):
+   36 sub-blocks, d_model 4096, lru_width 4096, 16 query heads and 1 KV
+   head of 256, window 2048): one round of batch 8 as above, and one
+   request of 3072 tokens at max_seq 4096, whose prefill attention the
+   window cuts and whose decode writes the ring cache; 24 ``rglru_scan``
+   and 12 ``flash_attention`` launches per prefill.  Both prefills are
+   recomputed with the plain scan and attention (bf16 and float32), every
+   launch of one more prefill is held to its plain version on its own
+   inputs, and decode is held against prefill in float32.  A profiled
+   warm round.
+10. A JSON line per kernel, then ``{"ok": true, "device": ...}`` as the
+    last line.
 
 Every check that fails exits non-zero before the last line is printed.
 Without a CUDA card, or run from a directory without the repository's
@@ -48,8 +73,8 @@ Without a CUDA card, or run from a directory without the repository's
 
 from __future__ import annotations
 
+import contextlib
 import cProfile
-import dataclasses
 import json
 import os
 import pstats
@@ -78,6 +103,7 @@ from repro_torch.serve.engine import Request, ServeEngine, pad_prompts  # noqa
 # H100 SXM, NVIDIA data sheet (dense, at the full 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
+F32_FLOP_PER_S = 67e12          # float32 outside the tensor cores
 
 SERVE_SHAPE = dict(B=8, S=512, T=512, H=9, KV=3, hd=64)
 # bf16: kernel and plain version both compute in f32 and round once to
@@ -91,7 +117,9 @@ TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 # |logit|.  bf16 model: the two attention paths differ by about one bf16
 # ulp, but each flipped rounding is amplified through 30 layers of random
 # weights, so the bound is loose and the f32 model carries the tight
-# check: its attention outputs differ by f32 summation order only.
+# check: its attention outputs differ by f32 summation order only.  The
+# same bounds hold the recurrent models of phases 8-9, where bf16 may also
+# take half of bf16's own noise (``kernel_vs_plain_prefill``).
 LOGIT_TOL = {torch.bfloat16: 4e-2, torch.float32: 1e-3}
 
 
@@ -141,6 +169,92 @@ def time_ms(fn, iters: int = 20, reps: int = 7) -> list:
     return sorted(times)
 
 
+def bound(nbytes: float, flops: float, flop_per_s: float):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flop_per_s
+    return max(t_bytes, t_ops) * 1e3, \
+        "bytes" if t_bytes >= t_ops else "operations"
+
+
+def spread(t) -> str:
+    return (f"median {statistics.median(t)!r} (min {min(t)!r}, max "
+            f"{max(t)!r} over {len(t)} graph replays)")
+
+
+@contextlib.contextmanager
+def compute_dtype(api, dtype):
+    """Run the model with float32 activations on its own float32 weights:
+    the compute dtype is only where the embedding output is cast and the
+    caches are made, so no copy of the weights is needed."""
+    old, api.model.cdtype = api.model.cdtype, dtype
+    try:
+        yield
+    finally:
+        api.model.cdtype = old
+
+
+def run_rounds(engine, rounds, label: str) -> list:
+    outs = []
+    for r, reqs in enumerate(rounds):
+        before = dict(engine.stats)
+        outs.append(engine.run_batch(reqs))
+        s = {k: engine.stats[k] - before[k] for k in before}
+        B = engine.batch
+        print(f"{label} round {r}: prefill {s['prefill_tokens']} tokens in "
+              f"{s['prefill_s'] * 1e3:.2f} ms "
+              f"({s['prefill_tokens'] / s['prefill_s']:.0f} tok/s) | decode "
+              f"{s['decode_steps']} steps in {s['decode_s'] * 1e3:.2f} ms "
+              f"({s['decode_s'] / s['decode_steps'] * 1e3:.3f} ms/step, "
+              f"{B * s['decode_steps'] / s['decode_s']:.0f} tok/s)")
+    return outs
+
+
+def check_tokens(outs, n: int, vocab: int, what: str) -> None:
+    toks = np.array([t for o in outs for row in o for t in row])
+    check(toks.size == n and toks.min() >= 0 and toks.max() < vocab,
+          f"{what}: served tokens out of [0, vocab) or missing")
+
+
+def rel_l2(a, b) -> float:
+    a, b = a.float(), b.float()
+    return ((a - b).norm() / b.norm()).item()
+
+
+def compare_logits(a, b, tol: float, what: str) -> None:
+    """Relative L2 and max |diff| / max |b| of two logit tensors, each
+    within ``tol``; both finite."""
+    a, b = a.float(), b.float()
+    check(bool(torch.isfinite(a).all() and torch.isfinite(b).all()),
+          f"{what}: non-finite logits")
+    rel = rel_l2(a, b)
+    rel_max = ((a - b).abs().max() / b.abs().max()).item()
+    agree = (a[:, -1].argmax(-1) == b[:, -1].argmax(-1)).sum().item()
+    print(f"{what}: rel L2 {rel!r}, max |diff| / max |logit| {rel_max!r} "
+          f"(tol {tol!r} each), max |logit| {b.abs().max().item()!r}, argmax "
+          f"agrees on {agree}/{a.shape[0]}")
+    check(rel <= tol and rel_max <= tol, what)
+
+
+def build_model(name: str):
+    cfg = get_arch(name)
+    t0 = time.perf_counter()
+    api = ModelAPI(cfg, device=CUDA)
+    api.model.init(torch.Generator(device=CUDA).manual_seed(0))
+    sync()
+    n = sum(p.numel() for p in api.model.parameters())
+    print(f"serve: {cfg.name} {len(api.model.blocks)} sub-blocks "
+          f"{api.model.kinds} x {api.model.groups}, d_model {cfg.d_model}, "
+          f"{n} parameters in float32 on {api.device}, drawn on the card in "
+          f"{time.perf_counter() - t0:.1f} s; device memory allocated "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    return cfg, api
+
+
+def prompts(rng, cfg, n: int, lo: int, hi: int, max_new: int) -> list:
+    return [Request(prompt=rng.integers(1, cfg.vocab, size=int(
+        rng.integers(lo, hi + 1))).astype(np.int32), max_new=max_new)
+        for _ in range(n)]
+
+
 def attn_inputs(seed, B, S, T, H, KV, hd, dtype):
     g = torch.Generator(device="cuda").manual_seed(seed)
     return [torch.randn(shape, generator=g, device="cuda").to(dtype)
@@ -155,8 +269,8 @@ def phase_device():
     torch.backends.cudnn.allow_tf32 = False
 
 
-KERNEL_SOURCES = ("flash_attention", "splitmix64", "sentinel_gather",
-                  "segreduce")
+KERNEL_SOURCES = ("flash_attention", "wkv6", "rglru_scan", "splitmix64",
+                  "sentinel_gather", "segreduce")
 
 
 def phase_build():
@@ -217,14 +331,8 @@ def phase_times():
     lib = time_ms(library)
     nbytes = sum(x.numel() * x.element_size() for x in (q, k, v, q))
     flops = 4 * B * H * S * T * hd * 0.5          # causal: half the pairs
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
-    bound_ms = max(t_bytes, t_ops) * 1e3
-    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    bound_ms, bound_by = bound(nbytes, flops, BF16_FLOP_PER_S)
     ms, plain_ms, lib_ms = (statistics.median(t) for t in (kern, plain, lib))
-
-    def spread(t):
-        return (f"median {statistics.median(t)!r} (min {min(t)!r}, max "
-                f"{max(t)!r} over {len(t)} graph replays)")
     print(f"times at {tuple(q.shape)} bf16 causal, ms per call: kernel "
           f"{spread(kern)}, plain {spread(plain)}, library (sdpa) "
           f"{spread(lib)} (max_abs_err vs plain {lib_err!r}); bound "
@@ -239,78 +347,45 @@ def plain_attend(q, k, v, cfg, causal, window):
 
 
 def phase_serve():
-    cfg = get_arch("smollm-135m")
-    t0 = time.perf_counter()
-    api = ModelAPI(cfg, device="cuda")
-    api.model.init(torch.Generator().manual_seed(0))
-    sync()
-    print(f"serve: {cfg.name} {cfg.n_layers} layers d_model {cfg.d_model} "
-          f"on {api.device}, init {time.perf_counter() - t0:.1f} s")
+    cfg, api = build_model("smollm-135m")
     batch, max_seq, max_new, n_rounds = 8, 1024, 32, 2
     rng = np.random.default_rng(0)
-    rounds = [[Request(prompt=rng.integers(
-        1, cfg.vocab, size=int(rng.integers(256, 513))).astype(np.int32),
-        max_new=max_new) for _ in range(batch)] for _ in range(n_rounds)]
+    rounds = [prompts(rng, cfg, batch, 256, 512, max_new)
+              for _ in range(n_rounds)]
     engine = ServeEngine(api, batch=batch, max_seq=max_seq)
-
     ops.reset_launch_counts()
-    outs = []
-    for r, reqs in enumerate(rounds):
-        before = dict(engine.stats)
-        outs.append(engine.run_batch(reqs))
-        s = {k: engine.stats[k] - before[k] for k in before}
-        print(f"round {r}: prefill {s['prefill_tokens']} tokens in "
-              f"{s['prefill_s'] * 1e3:.2f} ms "
-              f"({s['prefill_tokens'] / s['prefill_s']:.0f} tok/s) | decode "
-              f"{s['decode_steps']} steps in {s['decode_s'] * 1e3:.2f} ms "
-              f"({s['decode_s'] / s['decode_steps'] * 1e3:.3f} ms/step, "
-              f"{batch * s['decode_steps'] / s['decode_s']:.0f} tok/s)")
+    outs = run_rounds(engine, rounds, cfg.name)
     launches = dict(ops.launch_counts)
     print(f"launch counts over {n_rounds} prefills: {launches}")
     check(launches["flash_attention"] == cfg.n_layers * n_rounds,
           f"flash_attention launches {launches} != "
           f"{cfg.n_layers} x {n_rounds} prefills")
-    toks = np.array([t for o in outs for row in o for t in row])
-    check(toks.size == n_rounds * batch * max_new
-          and toks.min() >= 0 and toks.max() < cfg.vocab,
-          "served tokens out of [0, vocab) or missing")
+    check_tokens(outs, n_rounds * batch * max_new, cfg.vocab, cfg.name)
 
     # the first round's prefill again: through the kernel and with attention
-    # forced to the model's plain path, in the served bf16 model and an f32
-    # copy
-    padded = torch.from_numpy(pad_prompts(rounds[0], batch)).cuda()
-    api32 = ModelAPI(dataclasses.replace(cfg, dtype="float32"), "cuda")
-    api32.model.load_state_dict(api.model.state_dict())
-    for m in (api, api32):
-        logits, caches = m.prefill({"tokens": padded}, engine.shape)
-        with mock.patch.object(attention, "_attend", plain_attend):
-            plain_logits, _ = m.prefill({"tokens": padded}, engine.shape)
-        step_logits, _ = m.serve_step(
-            {"tokens": logits[:, -1].argmax(-1).to(torch.int32)[:, None],
-             "positions": torch.full((batch, 1), padded.shape[1],
-                                     dtype=torch.int32, device="cuda")},
-            caches)
+    # forced to the model's plain path, in bf16 and with float32 compute
+    padded = torch.from_numpy(pad_prompts(rounds[0], batch)).to(CUDA)
+    for dtype in (torch.bfloat16, torch.float32):
+        with compute_dtype(api, dtype):
+            logits, caches = api.prefill({"tokens": padded}, engine.shape)
+            with mock.patch.object(attention, "_attend", plain_attend):
+                plain_logits, _ = api.prefill({"tokens": padded},
+                                              engine.shape)
+            step_logits, _ = api.serve_step(
+                {"tokens": logits[:, -1].argmax(-1).to(torch.int32)[:, None],
+                 "positions": torch.full((batch, 1), padded.shape[1],
+                                         dtype=torch.int32, device=CUDA)},
+                caches)
         sync()
-        a, b = logits.float(), plain_logits.float()
-        check(bool(torch.isfinite(a).all() and torch.isfinite(b).all()
-                   and torch.isfinite(step_logits.float()).all()),
-              "non-finite logits")
-        rel_l2 = ((a - b).norm() / b.norm()).item()
-        rel_max = ((a - b).abs().max() / b.abs().max()).item()
-        agree = (a[:, -1].argmax(-1) == b[:, -1].argmax(-1)).sum().item()
-        tol = LOGIT_TOL[m.model.cdtype]
-        print(f"round 0 prefill logits, {str(m.model.cdtype)[6:]} model, "
-              f"kernel vs chunked_attention: rel L2 {rel_l2!r}, max |diff| / "
-              f"max |logit| {rel_max!r} (tol {tol} each), max |logit| "
-              f"{b.abs().max().item()!r}, argmax agrees on {agree}/{batch}")
-        check(rel_l2 <= tol and rel_max <= tol,
-              f"prefill logits of the {m.model.cdtype} model: kernel vs "
-              "plain attention")
-        if m is api:
-            check(a[:, -1].argmax(-1).tolist() == [o[0] for o in outs[0]],
+        check(bool(torch.isfinite(step_logits.float()).all()),
+              "non-finite decode logits")
+        compare_logits(logits, plain_logits, LOGIT_TOL[dtype],
+                       f"round 0 prefill logits, {str(dtype)[6:]} compute, "
+                       "kernel vs chunked_attention")
+        if dtype == torch.bfloat16:
+            check(logits[:, -1].argmax(-1).tolist() == [o[0] for o in outs[0]],
                   "the recomputed prefill does not give the served first "
                   "tokens")
-    del api32
     phase_profile(engine, rounds[1])
     return launches
 
@@ -760,7 +835,7 @@ def phase_star() -> dict:
             wall_cpu = time.perf_counter() - t0
         same_buffers(j, j_cpu, f"{name}: join output")
         same_buffers(g, g_cpu, f"{name}: group-by output")
-        want = dict(PER_QUERY, flash_attention=0)
+        want = dict(dict.fromkeys(ops.launch_counts, 0), **PER_QUERY)
         print(f"star query, {name}: {j.num_rows} joined rows, "
               f"{g.num_rows} groups; wall cuda {wall_cuda * 1e3:.1f} ms, "
               f"cpu {wall_cpu * 1e3:.1f} ms; launches {counts}; cuda and "
@@ -806,6 +881,377 @@ def phase_star() -> dict:
     return launches
 
 
+# --------------------------------------------------------------------------
+# recurrent kernels, and serving rwkv6-3b and recurrentgemma-9b
+# --------------------------------------------------------------------------
+
+# rwkv6-3b's prefill shape (B 8, prompts padded to 512, 40 heads of 64) and
+# recurrentgemma-9b's (B 8, S 512, lru_width 4096; attention 16 query heads
+# and 1 KV head of 256, window 2048), and its long request (B 1, S 3072)
+WKV_SHAPE = dict(B=8, S=512, H=40, N=64)
+LRU_SHAPE = dict(B=8, S=512, W=4096)
+HD256_SHAPES = {"serving": dict(B=8, S=512, H=16, KV=1, hd=256),
+                "long": dict(B=1, S=3072, H=16, KV=1, hd=256)}
+WINDOW = 2048
+# wkv6: f32 out and state differ from the plain version by the order of
+# the sums over n (the kernel folds 64 products in 2 chains and 4 lanes,
+# the plain einsum in cuBLAS's order) and by fused multiply-adds: ~1e-6
+# relative, 1e-4 as in tests/test_kernels.py; a bf16 output is that value
+# rounded once, so it may differ by one bf16 ulp (2^-8 relative): 2e-2.
+WKV_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# rglru_scan rounds its product and sum separately, as the plain `a * h +
+# b` does, so it is held bit for bit (tolerance 0).
+# decode after S tokens vs prefill of S + 1 tokens, float32 compute: the
+# starting tolerance of tests/test_models_smoke.py:102
+DECODE_TOL = 5e-3
+
+
+def wkv_inputs(g, B, S, H, N, dtype, decay):
+    """r, k, v, w, u, state on the card: w near the model's floor e^-4
+    (where the decay clip puts it) or near 1 (slow decay, a growing
+    state)."""
+    def rnd(*shape, scale=1.0):
+        return scale * torch.randn(shape, generator=g, device=CUDA)
+    r, k, v = rnd(B, S, H, N, scale=0.5), rnd(B, S, H, N, scale=0.5), \
+        rnd(B, S, H, N)
+    z = torch.rand(B, S, H, N, generator=g, device=CUDA)
+    w = {"floor": np.exp(-4.0) * (1.0 + 0.05 * z),
+         "near 1": 1.0 - 1e-3 * z,
+         "model": np.exp(-4.0) + (1.0 - np.exp(-4.0)) * z}[decay]
+    return (r.to(dtype), k.to(dtype), v.to(dtype), w, rnd(H, N, scale=0.1),
+            rnd(B, H, N, N, scale=0.1))
+
+
+def phase_recurrent_vs_plain() -> dict:
+    """wkv6, rglru_scan and flash attention at hd 256 with a window, each
+    on CUDA tensors against its plain version on the same tensors."""
+    g = torch.Generator(device=CUDA).manual_seed(7)
+    errs = {"wkv6": 0.0, "rglru_scan": 0.0, "flash_hd256": 0.0}
+    n = dict.fromkeys(errs, 0)
+    cases = [(dict(B=2, S=S, H=3, N=N), dtype, with_state, decay)
+             for N in (16, 32, 64) for S in (1, 15, 16, 17, 512)
+             for dtype in (torch.bfloat16, torch.float32)
+             for with_state in (True, False) for decay in ("floor", "near 1")]
+    cases += [(WKV_SHAPE, torch.bfloat16, True, "model"),
+              (WKV_SHAPE, torch.float32, False, "model")]
+    for shp, dtype, with_state, decay in cases:
+        r, k, v, w, u, st = wkv_inputs(g, dtype=dtype, decay=decay, **shp)
+        st = st if with_state else None
+        out, s_out = ops.wkv6(r, k, v, w, u, st)
+        want, want_s = ref.wkv6_ref(r, k, v, w, u, st)
+        sync()
+        tol = WKV_TOL[dtype]
+        ok = (out.dtype == dtype and s_out.shape == want_s.shape
+              and bool(torch.isfinite(out).all())
+              and torch.allclose(out.float(), want.float(), rtol=tol,
+                                 atol=tol)
+              and torch.allclose(s_out, want_s, rtol=1e-4, atol=1e-4))
+        err = (out.float() - want.float()).abs().max().item()
+        check(ok, f"wkv6 vs wkv6_ref {shp} {dtype} state={with_state} "
+              f"decay={decay}: max_abs_err {err!r}, state "
+              f"{(s_out - want_s).abs().max().item()!r}")
+        errs["wkv6"] = max(errs["wkv6"], err)
+        n["wkv6"] += 1
+    for S in (1, 3, 512, 3072):
+        for W in (64, 4096, 4100):
+            B = 8 if (S, W) == (512, 4096) else 2
+            a = torch.rand(B, S, W, generator=g, device=CUDA)
+            b = torch.randn(B, S, W, generator=g, device=CUDA)
+            for h0 in (torch.randn(B, W, generator=g, device=CUDA), None):
+                h, h_last = ops.rglru_scan(a, b, h0)
+                want, want_last = ref.rglru_ref(a, b, h0)
+                sync()
+                err = max((h - want).abs().max().item(),
+                          (h_last - want_last).abs().max().item())
+                check(torch.equal(h, want) and torch.equal(h_last, want_last),
+                      f"rglru_scan vs rglru_ref B={B} S={S} W={W} "
+                      f"h0={h0 is not None}: max_abs_err {err!r}")
+                errs["rglru_scan"] = max(errs["rglru_scan"], err)
+                n["rglru_scan"] += 1
+    for label, shp in HD256_SHAPES.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            if dtype == torch.float32:
+                shp = dict(shp, B=1)
+            q, k, v = attn_inputs(shp["S"], T=shp["S"], dtype=dtype, **shp)
+            out = ops.flash_attention(q, k, v, causal=True, window=WINDOW)
+            want = ref.attention_ref(q, k, v, causal=True, window=WINDOW)
+            sync()
+            err = (out.float() - want.float()).abs().max().item()
+            tol = TOL[dtype]
+            check(bool(torch.isfinite(out).all()) and torch.allclose(
+                out.float(), want.float(), rtol=tol, atol=tol),
+                f"flash_attention hd 256 window {WINDOW} [{label}] {dtype}: "
+                f"max_abs_err {err!r}")
+            print(f"kernel vs plain [hd 256 window {WINDOW} {label}] "
+                  f"{tuple(q.shape)} {str(dtype)[6:]}: max_abs_err {err!r} "
+                  f"(tol {tol}) ok")
+            if dtype == torch.bfloat16:
+                errs["flash_hd256"] = max(errs["flash_hd256"], err)
+            n["flash_hd256"] += 1
+    print(f"recurrent kernels vs plain versions: {n} cases, max_abs_err "
+          f"{errs} (wkv6 tol {WKV_TOL[torch.float32]} f32 / "
+          f"{WKV_TOL[torch.bfloat16]} bf16, rglru_scan bit for bit, flash "
+          f"tol {TOL})")
+    return errs
+
+
+def timed_pair(kernel, plain, plain_iters: int = 20):
+    """Device ms of the kernel and of its plain version, kernel, plain,
+    plain, kernel: drift on the card falls on both sides."""
+    kern = time_ms(kernel)
+    pl = time_ms(plain, iters=plain_iters, reps=3)
+    pl += time_ms(plain, iters=plain_iters, reps=3)
+    kern += time_ms(kernel)
+    return kern, pl
+
+
+def phase_recurrent_times() -> dict:
+    """wkv6, rglru_scan and flash at hd 256 at the serving shapes: kernel,
+    plain version and (attention) sdpa from CUDA-graph replays, beside the
+    bound."""
+    g = torch.Generator(device=CUDA).manual_seed(8)
+    smi = smi_line()
+    res = {}
+    B, S, H, N = (WKV_SHAPE[x] for x in "BSHN")
+    r, k, v, w, u, _ = wkv_inputs(g, dtype=torch.bfloat16, decay="model",
+                                  **WKV_SHAPE)
+    st = torch.zeros(B, H, N, N, device=CUDA)     # prefill's zero cache
+    kern, pl = timed_pair(lambda: ops.wkv6(r, k, v, w, u, st),
+                          lambda: ref.wkv6_ref(r, k, v, w, u, st),
+                          plain_iters=2)
+    nbytes = sum(x.numel() * x.element_size()
+                 for x in (r, k, v, w, u, st, r, st))   # out like r, state
+    bound_ms, by = bound(nbytes, 5 * N * N * B * S * H, F32_FLOP_PER_S)
+    res["wkv6"] = dict(ms=statistics.median(kern),
+                       plain_ms=statistics.median(pl), bound_ms=bound_ms,
+                       bound_by=by, library_ms=None)
+    print(f"wkv6 at {tuple(r.shape)} bf16 (w f32, state f32), ms per call: "
+          f"kernel {spread(kern)}, plain {spread(pl)}; bound {bound_ms!r} ms"
+          f" by {by} ({nbytes} bytes, {5 * N * N * B * S * H} f32 flop at "
+          f"{F32_FLOP_PER_S:.3g}/s); no PyTorch call computes it [{smi}]")
+
+    B, S, W = (LRU_SHAPE[x] for x in "BSW")
+    a = torch.rand(B, S, W, generator=g, device=CUDA)
+    b = torch.randn(B, S, W, generator=g, device=CUDA)
+    h0 = torch.zeros(B, W, device=CUDA)
+    kern, pl = timed_pair(lambda: ops.rglru_scan(a, b, h0),
+                          lambda: ref.rglru_ref(a, b, h0), plain_iters=2)
+    nbytes = 4 * (3 * B * S * W + 2 * B * W)
+    bound_ms, by = bound(nbytes, 2 * B * S * W, F32_FLOP_PER_S)
+    res["rglru_scan"] = dict(ms=statistics.median(kern),
+                             plain_ms=statistics.median(pl),
+                             bound_ms=bound_ms, bound_by=by, library_ms=None)
+    print(f"rglru_scan at {tuple(a.shape)} f32 with h0, ms per call: kernel "
+          f"{spread(kern)}, plain {spread(pl)}; bound {bound_ms!r} ms by {by}"
+          f" ({nbytes} bytes); no PyTorch call computes it [{smi}]")
+
+    for label, shp in HD256_SHAPES.items():
+        B, S, H, KV, hd = (shp[x] for x in ("B", "S", "H", "KV", "hd"))
+        q, k, v = attn_inputs(S + 1, T=S, dtype=torch.bfloat16, **shp)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        pos = torch.arange(S, device=CUDA)
+        mask = (pos[None, :] <= pos[:, None]) \
+            & (pos[None, :] > pos[:, None] - WINDOW)
+
+        def library():
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                  enable_gqa=True)
+        lib_err = (library().transpose(1, 2).float() - ref.attention_ref(
+            q, k, v, window=WINDOW).float()).abs().max().item()
+        kern, pl = timed_pair(
+            lambda: ops.flash_attention(q, k, v, window=WINDOW),
+            lambda: ref.attention_ref(q, k, v, window=WINDOW), plain_iters=5)
+        lib = time_ms(library, iters=5, reps=5)
+        pairs = int(mask.sum())                  # visible (query, key) pairs
+        nbytes = sum(x.numel() * x.element_size() for x in (q, k, v, q))
+        flops = 4 * B * H * hd * pairs
+        bound_ms, by = bound(nbytes, flops, BF16_FLOP_PER_S)
+        res[f"flash_hd256_{label}"] = dict(
+            shape=[B, S, H, KV, hd], window=WINDOW, ms=statistics.median(kern),
+            plain_ms=statistics.median(pl), bound_ms=bound_ms, bound_by=by,
+            library_ms=statistics.median(lib))
+        print(f"flash hd 256 [{label}] at {tuple(q.shape)} KV {KV} bf16 "
+              f"causal window {WINDOW}, ms per call: kernel {spread(kern)}, "
+              f"plain {spread(pl)}, library (sdpa, boolean mask) "
+              f"{spread(lib)} (max_abs_err vs plain {lib_err!r}); bound "
+              f"{bound_ms!r} ms by {by} ({nbytes} bytes, {flops} flop over "
+              f"{pairs} visible pairs) [{smi}]")
+    return res
+
+
+def kernel_vs_plain_prefill(api, tokens, shape, plain_patches, what: str,
+                            served_first) -> None:
+    """The prefill logits through the kernels against those with each
+    kernel swapped for its plain version, with float32 compute on the
+    same weights (the tight check, ``LOGIT_TOL``) and in bf16.  In bf16
+    every rounding that the two paths flip differently is amplified by the
+    random layers, in rwkv6-3b's slowly decaying states most of all, so
+    the bf16 bound is ``LOGIT_TOL``'s or half of the gap that bf16 rounding
+    alone opens between the plain path's bf16 and float32 logits, whichever
+    is larger: the kernel may not add more than half of bf16's own noise."""
+    logits = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        with compute_dtype(api, dtype):
+            logits[dtype], _ = api.prefill({"tokens": tokens}, shape)
+            with contextlib.ExitStack() as stack:
+                for target, name, fn in plain_patches:
+                    stack.enter_context(mock.patch.object(target, name, fn))
+                logits[dtype, "plain"], _ = api.prefill({"tokens": tokens},
+                                                        shape)
+    sync()
+    f32, bf16 = torch.float32, torch.bfloat16
+    compare_logits(logits[f32], logits[f32, "plain"], LOGIT_TOL[f32],
+                   f"{what} prefill logits, float32 compute, kernels vs "
+                   "plain versions")
+    floor = rel_l2(logits[bf16, "plain"], logits[f32, "plain"])
+    tol = max(LOGIT_TOL[bf16], floor / 2)
+    print(f"{what}: bf16 rounding alone, plain path's bf16 vs float32 "
+          f"logits: rel L2 {floor!r}; bf16 bound {tol!r}")
+    compare_logits(logits[bf16], logits[bf16, "plain"], tol,
+                   f"{what} prefill logits, bf16 compute, kernels vs plain "
+                   "versions")
+    check(logits[bf16][:, -1].argmax(-1).tolist() == served_first,
+          f"{what}: the recomputed prefill does not give the served first "
+          "tokens")
+
+
+def each_launch_vs_plain(api, tokens, shape, twins, what: str) -> dict:
+    """One more bf16 prefill in which every call of each wrapper is held
+    to its plain version on the same inputs, before the caches change:
+    the path's own shapes and values, free of the amplification through
+    the layers that the logits see.  ``twins``: (name, plain, tolerance by
+    output dtype, 0 for bit for bit).  These launches are comparisons and
+    come after the main path's counts were read."""
+    errs, n = {}, {}
+
+    def as_tuple(x):
+        return x if isinstance(x, tuple) else (x,)
+
+    def twin(name, kernel, plain, tol):
+        def call(*args, **kw):
+            out = kernel(*args, **kw)
+            for o, w in zip(as_tuple(out), as_tuple(plain(*args, **kw))):
+                t = tol.get(o.dtype, 0.0)
+                err = (o.float() - w.float()).abs().max().item()
+                check(o.dtype == w.dtype and o.shape == w.shape
+                      and torch.allclose(o.float(), w.float(), rtol=t,
+                                         atol=t),
+                      f"{what}: {name} launch {n.get(name, 0)} vs its plain "
+                      f"version: max_abs_err {err!r} (tol {t})")
+                errs[name] = max(errs.get(name, 0.0), err)
+            n[name] = n.get(name, 0) + 1
+            return out
+        return call
+    with compute_dtype(api, torch.bfloat16), contextlib.ExitStack() as stack:
+        for name, plain, tol in twins:
+            stack.enter_context(mock.patch.object(
+                ops, name, twin(name, getattr(ops, name), plain, tol)))
+        api.prefill({"tokens": tokens}, shape)
+    sync()
+    print(f"{what}: every launch of a bf16 prefill against its plain version"
+          f" on its own inputs: {n} launches, max_abs_err {errs}")
+    return errs
+
+
+def decode_vs_prefill(api, tokens, shape, what: str) -> None:
+    """Float32 compute: the logits of one decode step after the S tokens
+    against the last logits of a prefill of S + 1 tokens."""
+    B, S = tokens.shape
+    with compute_dtype(api, torch.float32):
+        logits, caches = api.prefill({"tokens": tokens}, shape)
+        nxt = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+        step, _ = api.serve_step(
+            {"tokens": nxt, "positions": torch.full(
+                (B, 1), S, dtype=torch.int32, device=CUDA)}, caches)
+        full, _ = api.prefill({"tokens": torch.cat([tokens, nxt], 1)}, shape)
+    sync()
+    a, b = step[:, -1].float(), full[:, -1].float()
+    err = (a - b).abs().max().item()
+    print(f"{what}: decode after {S} tokens vs prefill of {S + 1}, float32 "
+          f"compute: max |diff| {err!r}, max |logit| "
+          f"{b.abs().max().item()!r} (allclose at {DECODE_TOL})")
+    check(bool(torch.isfinite(a).all()) and torch.allclose(
+        a, b, rtol=DECODE_TOL, atol=DECODE_TOL),
+        f"{what}: decode disagrees with prefill")
+
+
+def plain_wkv6(r, k, v, w, u, state=None):
+    return ref.wkv6_ref(r, k, v, w, u, state)
+
+
+def phase_serve_rwkv() -> dict:
+    cfg, api = build_model("rwkv6-3b")
+    batch, max_seq, max_new = 8, 1024, 32
+    rng = np.random.default_rng(1)
+    rounds = [prompts(rng, cfg, batch, 256, 512, max_new) for _ in range(2)]
+    engine = ServeEngine(api, batch=batch, max_seq=max_seq)
+    ops.reset_launch_counts()
+    outs = run_rounds(engine, rounds, cfg.name)
+    launches = dict(ops.launch_counts)
+    print(f"{cfg.name} launch counts over 2 prefills: {launches}")
+    check(launches == dict(dict.fromkeys(launches, 0),
+                           wkv6=cfg.n_layers * 2),
+          f"{cfg.name}: launches {launches} != wkv6 {cfg.n_layers} x 2")
+    check_tokens(outs, 2 * batch * max_new, cfg.vocab, cfg.name)
+    padded = torch.from_numpy(pad_prompts(rounds[0], batch)).to(CUDA)
+    kernel_vs_plain_prefill(api, padded, engine.shape,
+                            [(ops, "wkv6", plain_wkv6)], cfg.name,
+                            [o[0] for o in outs[0]])
+    each_launch_vs_plain(api, padded, engine.shape,
+                         [("wkv6", plain_wkv6, WKV_TOL)], cfg.name)
+    decode_vs_prefill(api, padded, engine.shape, cfg.name)
+    profile_run(lambda: engine.run_batch(rounds[1]),
+                f"one warm {cfg.name} round")
+    del api, engine
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_serve_rgemma() -> dict:
+    cfg, api = build_model("recurrentgemma-9b")
+    rng = np.random.default_rng(2)
+    max_new = 32
+    runs = [("batch 8", 8, 1024, prompts(rng, cfg, 8, 256, 512, max_new)),
+            ("long", 1, 4096, prompts(rng, cfg, 1, 3072, 3072, max_new))]
+    n_rec = sum(k == "rec" for k in api.model.kinds) * api.model.groups
+    n_attn = len(api.model.blocks) - n_rec
+    engines, outs = {}, {}
+    ops.reset_launch_counts()
+    for label, batch, max_seq, reqs in runs:
+        engines[label] = ServeEngine(api, batch=batch, max_seq=max_seq)
+        outs[label] = run_rounds(engines[label], [reqs],
+                                 f"{cfg.name} {label}")[0]
+    launches = dict(ops.launch_counts)
+    print(f"{cfg.name} launch counts over 2 prefills: {launches}")
+    check(launches == dict(dict.fromkeys(launches, 0), rglru_scan=n_rec * 2,
+                           flash_attention=n_attn * 2),
+          f"{cfg.name}: launches {launches} != rglru_scan {n_rec} x 2, "
+          f"flash_attention {n_attn} x 2")
+    check(engines["long"].stats["prefill_tokens"] == 3072
+          and WINDOW < 3072, "the long request does not pass the window")
+    for label, batch, _, reqs in runs:
+        check_tokens([outs[label]], batch * max_new, cfg.vocab,
+                     f"{cfg.name} {label}")
+        padded = torch.from_numpy(pad_prompts(reqs, batch)).to(CUDA)
+        shape = engines[label].shape
+        kernel_vs_plain_prefill(
+            api, padded, shape,
+            [(ops, "rglru_scan", ref.rglru_ref),
+             (attention, "_attend", plain_attend)],
+            f"{cfg.name} {label}", [o[0] for o in outs[label]])
+        each_launch_vs_plain(
+            api, padded, shape,
+            [("rglru_scan", ref.rglru_ref, {}),
+             ("flash_attention", ref.attention_ref, TOL)],
+            f"{cfg.name} {label}")
+        decode_vs_prefill(api, padded, shape, f"{cfg.name} {label}")
+    profile_run(lambda: engines["batch 8"].run_batch(runs[0][3]),
+                f"one warm {cfg.name} batch-8 round")
+    del api, engines
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAILED: torch.cuda.is_available() is False: chip_smoke.py "
@@ -819,13 +1265,31 @@ def main() -> int:
     rel_err = phase_relational_vs_plain()
     rel_times = phase_relational_times()
     rel_launches = phase_star()
+    rec_err = phase_recurrent_vs_plain()
+    rec_times = phase_recurrent_times()
+    rwkv_launches = phase_serve_rwkv()
+    rgemma_launches = phase_serve_rgemma()
     print(f"device: {smi_line()}")
+    flash_paths = {"smollm-135m": launches["flash_attention"],
+                   "recurrentgemma-9b": rgemma_launches["flash_attention"]}
     kernels = [dict(
         name="flash_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:30",
-        launches=launches["flash_attention"], max_abs_err=max_err,
-        **times)]
+        launches=sum(flash_paths.values()), launches_by_path=flash_paths,
+        max_abs_err=max_err, **times,
+        hd256=dict(max_abs_err=rec_err["flash_hd256"],
+                   serving=rec_times["flash_hd256_serving"],
+                   long=rec_times["flash_hd256_long"]))]
+    for name, line, launched in (
+            ("wkv6", "src/repro/kernels/wkv6.py:27", rwkv_launches),
+            ("rglru_scan", "src/repro/kernels/rglru_scan.py:21",
+             rgemma_launches)):
+        kernels.append(dict(
+            name=name, route="cuda",
+            source=f"src/repro_torch/kernels/csrc/{name}.cu",
+            replaces=line, launches=launched[name],
+            max_abs_err=rec_err[name], **rec_times[name]))
     for name, (src, line) in REL_SOURCES.items():
         t = rel_times[name]
         kernels.append(dict(

@@ -16,7 +16,7 @@ import torch
 
 from . import build
 
-SUPPORTED_HD = (16, 32, 64, 128)
+SUPPORTED_HD = (16, 32, 64, 128, 256)
 DTYPES = (torch.float32, torch.bfloat16)
 
 _fn = None

@@ -3,12 +3,14 @@
 The tensor's device decides the path: a CUDA tensor launches the kernel
 (or raises), a CPU tensor takes the plain PyTorch version in ``ref.py``.
 There is no environment override and no fallback from CUDA to the plain
-version.  Empty outputs launch nothing on either device, and so does one
-case with a non-empty output: a sentinel gather from an empty source,
-where every index is a miss.  As in the TPU wrapper (``_sentinel_gather``
-of ``src/repro/kernels/relational.py``), it is answered with a tensor of
-the fill made by ``torch.full`` on the card, and counts no launch.  Inputs are validated the same way on both devices, so a call
-that the kernel would refuse also fails on the CPU.
+version.  Empty relational outputs launch nothing on either device (the
+recurrences refuse empty inputs), and so does one case with a non-empty
+output: a sentinel gather from an empty source, where every index is a
+miss.  As in the TPU wrapper (``_sentinel_gather`` of
+``src/repro/kernels/relational.py``), it is answered with a tensor of the
+fill made by ``torch.full`` on the card, and counts no launch.  Inputs
+are validated the same way on both devices, so a call that the kernel
+would refuse also fails on the CPU.
 
 ``launch_counts`` holds one plain integer per kernel, raised by one where
 the wrapper launches that kernel and nowhere else; a run sets them to 0
@@ -30,15 +32,29 @@ import torch
 
 from . import ref, relational
 from .flash_attention import DTYPES, SUPPORTED_HD, flash_attention_cuda
+from .rglru_scan import rglru_scan_cuda
+from .wkv6 import SUPPORTED_N, wkv6_cuda
 
 launch_counts: Dict[str, int] = {
-    "flash_attention": 0, "hash_fixed": 0, "combine_hashes": 0,
-    "filter_join_gather": 0, "segreduce": 0}
+    "flash_attention": 0, "wkv6": 0, "rglru_scan": 0, "hash_fixed": 0,
+    "combine_hashes": 0, "filter_join_gather": 0, "segreduce": 0}
 
 
 def reset_launch_counts() -> None:
     for name in launch_counts:
         launch_counts[name] = 0
+
+
+def _on_cuda(*ts: torch.Tensor) -> bool:
+    """True for CUDA tensors, False for CPU ones; raises for a mix or for
+    another device."""
+    dev = ts[0].device
+    if any(t.device != dev for t in ts):
+        raise ValueError(f"tensors on different devices: "
+                         f"{[str(t.device) for t in ts]}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel for device {dev}")
+    return dev.type == "cuda"
 
 
 def _check_attention(q, k, v, window: int) -> None:
@@ -95,6 +111,76 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
 
 
 # --------------------------------------------------------------------------
+# recurrences (wkv6.cu, rglru_scan.cu)
+# --------------------------------------------------------------------------
+
+def _check_f32(name: str, t: torch.Tensor, shape) -> None:
+    if t.dtype != torch.float32 or tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: float32 {tuple(shape)} expected, got "
+                         f"{t.dtype} {tuple(t.shape)}")
+
+
+def wkv6(r, k, v, w, u, state=None):
+    """RWKV-6 recurrence per (batch, head) with an N x N float32 state:
+    o_t = r_t (diag(u) k_t v_t^T + S), S <- diag(w_t) S + k_t v_t^T.
+    r, k, v: (B, S, H, N), float32 or bfloat16 of one dtype; w: float32
+    (B, S, H, N) decays; u: float32 (H, N); state: float32 (B, H, N, N) or
+    None (zeros).  Any S >= 1.  Returns (out (B, S, H, N) in r's dtype,
+    final state (B, H, N, N) float32)."""
+    if r.dim() != 4 or k.shape != r.shape or v.shape != r.shape:
+        raise ValueError(f"wkv6: r, k, v (B, S, H, N) of one shape expected,"
+                         f" got {tuple(r.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    if r.dtype not in DTYPES or k.dtype != r.dtype or v.dtype != r.dtype:
+        raise TypeError(f"wkv6: float32 or bfloat16 r, k, v of one dtype "
+                        f"expected, got {r.dtype}, {k.dtype}, {v.dtype}")
+    B, S, H, N = r.shape
+    _check_f32("wkv6 w", w, r.shape)
+    _check_f32("wkv6 u", u, (H, N))
+    ts = [r, k, v, w, u]
+    if state is not None:
+        _check_f32("wkv6 state", state, (B, H, N, N))
+        ts.append(state)
+    cuda = _on_cuda(*ts)
+    if min(B, S, H) < 1 or N not in SUPPORTED_N:
+        raise ValueError(f"wkv6: empty input or head size {N} not "
+                         f"supported (B, S, H, N = {tuple(r.shape)}; "
+                         f"supported N: {SUPPORTED_N})")
+    if not cuda:
+        return ref.wkv6_ref(r, k, v, w, u, state)
+    out = wkv6_cuda(*(t.contiguous() for t in (r, k, v, w, u)),
+                    None if state is None else state.contiguous())
+    launch_counts["wkv6"] += 1
+    return out
+
+
+def rglru_scan(a, b, h0=None):
+    """Linear recurrence h_t = a_t * h_{t-1} + b_t per channel, h_{-1} = h0
+    (zeros when None).  a, b: float32 (B, S, W); h0: float32 (B, W).  Any
+    S, W >= 1.  Returns (h (B, S, W), h_last (B, W)), float32."""
+    if a.dim() != 3:
+        raise ValueError(f"rglru_scan: a (B, S, W) expected, got "
+                         f"{tuple(a.shape)}")
+    _check_f32("rglru_scan a", a, a.shape)
+    _check_f32("rglru_scan b", b, a.shape)
+    B, S, W = a.shape
+    ts = [a, b]
+    if h0 is not None:
+        _check_f32("rglru_scan h0", h0, (B, W))
+        ts.append(h0)
+    cuda = _on_cuda(*ts)
+    if min(B, S, W) < 1 or B > 65535:
+        raise ValueError(f"rglru_scan: empty input or B={B} above the "
+                         f"kernel's grid limit of 65535 ({tuple(a.shape)})")
+    if not cuda:
+        return ref.rglru_ref(a, b, h0)
+    out = rglru_scan_cuda(a.contiguous(), b.contiguous(),
+                          None if h0 is None else h0.contiguous())
+    launch_counts["rglru_scan"] += 1
+    return out
+
+
+# --------------------------------------------------------------------------
 # relational kernels (splitmix64.cu, sentinel_gather.cu, segreduce.cu)
 # --------------------------------------------------------------------------
 
@@ -107,18 +193,6 @@ FIXED_DTYPES = INT_DTYPES + (torch.bool, torch.float16, torch.float32,
 #: what the segment reducers take: float reductions are order-sensitive
 #: and never reach the kernel (core.kdispatch.REGISTRY)
 REDUCE_DTYPES = INT_DTYPES + (torch.bool,)
-
-
-def _on_cuda(*ts: torch.Tensor) -> bool:
-    """True for CUDA tensors, False for CPU ones; raises for a mix or for
-    another device."""
-    dev = ts[0].device
-    if any(t.device != dev for t in ts):
-        raise ValueError(f"tensors on different devices: "
-                         f"{[str(t.device) for t in ts]}")
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"no kernel for device {dev}")
-    return dev.type == "cuda"
 
 
 def _check_1d(name: str, t: torch.Tensor, dtypes) -> None:

@@ -31,6 +31,40 @@ def attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
     return o.reshape(B, S, H, hd).to(q.dtype)
 
 
+def rglru_ref(a, b, h0=None):
+    """Sequential linear recurrence h_t = a_t * h_{t-1} + b_t in float32
+    (the JAX oracle ``ref.rglru_ref``).  a, b: (B, S, W), S >= 1; h0: (B, W)
+    or None (zeros).  Returns (h (B, S, W), h_last (B, W)), float32."""
+    B, S, W = a.shape
+    h = torch.zeros((B, W), dtype=torch.float32, device=a.device) \
+        if h0 is None else h0.float()
+    a, b = a.float(), b.float()
+    hs = []
+    for t in range(S):
+        h = a[:, t] * h + b[:, t]
+        hs.append(h)
+    return torch.stack(hs, dim=1), h
+
+
+def wkv6_ref(r, k, v, w, u, state=None):
+    """Sequential WKV-6 in float32 (the JAX oracle ``ref.wkv6_ref``), per
+    (batch, head): o_t = r_t (diag(u) k_t v_t^T + S);  S <- diag(w_t) S +
+    k_t v_t^T.  r, k, v, w: (B, S, H, N), S >= 1; u: (H, N); state:
+    (B, H, N, N) or None (zeros).  Returns (out in r's dtype, final state
+    float32)."""
+    B, S, H, N = r.shape
+    st = torch.zeros((B, H, N, N), dtype=torch.float32, device=r.device) \
+        if state is None else state.float()
+    u = u.float()[None, :, :, None]
+    rf, kf, vf, wf = (x.float() for x in (r, k, v, w))
+    outs = []
+    for t in range(S):
+        kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]      # (B, H, N, N)
+        outs.append(torch.einsum("bhn,bhnm->bhm", rf[:, t], st + u * kv))
+        st = st * wf[:, t, :, :, None] + kv
+    return torch.stack(outs, dim=1).to(r.dtype), st
+
+
 # --------------------------------------------------------------------------
 # relational kernels: bits in 64-bit signed words
 # --------------------------------------------------------------------------

@@ -2,12 +2,15 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
         --batch 4 --max-new 32                  # on the CUDA card
-    PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch recurrentgemma-9b --smoke --device cpu
 
-Weights are random (a CPU ``torch.Generator`` seeded with 0) and prompts
-are drawn with numpy's generator seeded with 0, as in the JAX package's
-``launch/serve.py``.  Without ``--device cpu`` it runs on CUDA, and
-raises when no card is present.
+Weights are random, drawn on the serving device by a ``torch.Generator``
+of that device seeded with 0 (a full-width model never passes through
+host memory), and prompts are drawn with numpy's generator seeded with 0,
+as in the JAX package's ``launch/serve.py``.  Without ``--device cpu`` it
+runs on CUDA, and raises when no card is present.
 """
 
 from __future__ import annotations
@@ -48,7 +51,7 @@ def main(argv=None) -> ServeEngine:
     if a.kv_int8:
         arch = dataclasses.replace(arch, kv_cache_dtype="int8")
     api = ModelAPI(arch, device)
-    api.model.init(torch.Generator().manual_seed(0))
+    api.model.init(torch.Generator(device=device).manual_seed(0))
     engine = ServeEngine(api, batch=a.batch, max_seq=a.max_seq)
 
     rng = np.random.default_rng(0)

@@ -3,8 +3,10 @@ hold the weights and call them.
 
 Weights keep the JAX package's shapes and names (``wi``/``wg``/``wo``, a
 norm's scale), so ``convert.py`` copies a JAX pytree leaf for leaf.
-Initializers draw from an explicit CPU ``torch.Generator`` and copy to the
-weight's device, so one seed gives the same weights on every device.
+Initializers draw from an explicit ``torch.Generator`` on the generator's
+own device and copy to the weight's: a CPU generator gives the same
+weights on every device, a CUDA generator draws a full-width model on the
+card without a pass through host memory.
 """
 
 from __future__ import annotations
@@ -18,14 +20,39 @@ import torch.nn.functional as F
 from torch import nn
 
 
+def draw_(w: torch.Tensor, generator: torch.Generator, fill) -> torch.Tensor:
+    """Fill ``w`` with ``fill(t)``, where ``t`` is a float32 tensor of w's
+    shape on the generator's device (``w`` itself when it is one)."""
+    with torch.no_grad():
+        if w.dtype == torch.float32 and w.device == generator.device:
+            fill(w)
+        else:
+            t = torch.empty(w.shape, dtype=torch.float32,
+                            device=generator.device)
+            fill(t)
+            w.copy_(t)
+    return w
+
+
 def trunc_normal_(w: torch.Tensor, std: float,
                   generator: torch.Generator) -> torch.Tensor:
     """Fill ``w`` from a normal of ``std`` truncated at two deviations."""
-    t = torch.empty(w.shape, dtype=torch.float32)
-    nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std,
-                          generator=generator)
-    with torch.no_grad():
-        return w.copy_(t)
+    return draw_(w, generator, lambda t: nn.init.trunc_normal_(
+        t, 0.0, std, -2.0 * std, 2.0 * std, generator=generator))
+
+
+def normal_(w: torch.Tensor, std: float,
+            generator: torch.Generator) -> torch.Tensor:
+    """Fill ``w`` from a normal of ``std``."""
+    return draw_(w, generator,
+                 lambda t: t.normal_(0.0, std, generator=generator))
+
+
+def uniform_(w: torch.Tensor, lo: float, hi: float,
+             generator: torch.Generator) -> torch.Tensor:
+    """Fill ``w`` from a uniform over [lo, hi)."""
+    return draw_(w, generator,
+                 lambda t: t.uniform_(lo, hi, generator=generator))
 
 
 def dense_init_(w: torch.Tensor, in_dim: int, generator: torch.Generator,

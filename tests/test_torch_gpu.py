@@ -1,8 +1,9 @@
 """The hand-written CUDA kernels against their plain versions on the card:
 flash attention at the shapes of tests/test_torch_kernels.py, in float32
-and bfloat16; the relational kernels (splitmix64, sentinel gather, segment
-reductions) bit for bit over every dtype family and edge case, and the
-relational ops on the card against the same ops on the CPU.  Skips without
+and bfloat16, and at hd 256 with a window; the WKV-6 and RG-LRU scans at
+ragged lengths and widths; the relational kernels (splitmix64, sentinel
+gather, segment reductions) bit for bit over every dtype family and edge
+case, and the relational ops on the card against the same ops on the CPU.  Skips without
 a CUDA card; run it there with
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -54,6 +55,64 @@ def test_kernel_matches_plain(cuda, dtype, B, S, T, H, KV, hd, causal,
     assert out.dtype == dtype and out.shape == want.shape
     torch.testing.assert_close(out.float(), want.float(), rtol=TOL[dtype],
                                atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("S,window", [(200, 64), (300, 128)])
+def test_kernel_hd256_window_matches_plain(cuda, S, window):
+    """recurrentgemma's local attention: hd 256, MQA (G 16), a window."""
+    g = torch.Generator(device=cuda).manual_seed(S)
+    q, k, v = (torch.randn(s, generator=g, device=cuda).bfloat16()
+               for s in ((1, S, 16, 256), (1, S, 1, 256), (1, S, 1, 256)))
+    out = ops.flash_attention(q, k, v, causal=True, window=window)
+    want = ref.attention_ref(q, k, v, causal=True, window=window)
+    torch.testing.assert_close(out.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+def wkv_inputs(g, B, S, H, N, dtype, w_lo=0.018):
+    r, k = (0.5 * torch.randn(B, S, H, N, generator=g, device="cuda")
+            for _ in range(2))
+    v = torch.randn(B, S, H, N, generator=g, device="cuda")
+    w = w_lo + (1 - w_lo) * torch.rand(B, S, H, N, generator=g,
+                                       device="cuda")
+    u = 0.1 * torch.randn(H, N, generator=g, device="cuda")
+    st = 0.1 * torch.randn(B, H, N, N, generator=g, device="cuda")
+    return r.to(dtype), k.to(dtype), v.to(dtype), w, u, st
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,N", [(1, 1, 2, 16), (2, 17, 3, 32),
+                                     (1, 100, 2, 64), (2, 64, 5, 64)])
+def test_wkv6_matches_plain(cuda, dtype, B, S, H, N):
+    g = torch.Generator(device=cuda).manual_seed(S * N)
+    r, k, v, w, u, st = wkv_inputs(g, B, S, H, N, dtype)
+    for state in (st, None):
+        before = ops.launch_counts["wkv6"]
+        out, s_out = ops.wkv6(r, k, v, w, u, state)
+        assert ops.launch_counts["wkv6"] == before + 1
+        want, want_s = ref.wkv6_ref(r, k, v, w, u, state)
+        torch.cuda.synchronize()
+        assert out.dtype == dtype and s_out.dtype == torch.float32
+        tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+        torch.testing.assert_close(out.float(), want.float(), rtol=tol,
+                                   atol=tol)
+        torch.testing.assert_close(s_out, want_s, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("B,S,W", [(1, 1, 64), (2, 3, 100), (3, 70, 4100),
+                                   (1, 512, 4096)])
+def test_rglru_scan_matches_plain_bit_for_bit(cuda, B, S, W):
+    g = torch.Generator(device=cuda).manual_seed(S + W)
+    a = torch.rand(B, S, W, generator=g, device=cuda)
+    b = torch.randn(B, S, W, generator=g, device=cuda)
+    h0 = torch.randn(B, W, generator=g, device=cuda)
+    for init in (h0, None):
+        before = ops.launch_counts["rglru_scan"]
+        h, h_last = ops.rglru_scan(a, b, init)
+        assert ops.launch_counts["rglru_scan"] == before + 1
+        want, want_last = ref.rglru_ref(a, b, init)
+        torch.cuda.synchronize()
+        assert torch.equal(h, want) and torch.equal(h_last, want_last)
 
 
 def test_kernel_reads_strided_inputs(cuda):
