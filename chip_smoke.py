@@ -49,7 +49,9 @@
    of batch 8, prompts of 256-512 tokens, max_seq 1024, 32 new tokens; 32
    ``wkv6`` launches per prefill.  Round 0's prefill logits are recomputed
    with ``ops.wkv6`` swapped for its plain version, in bf16 and with the
-   same weights computing in float32; every wkv6 launch of one more
+   same weights computing in float32, and once more on the plain path in
+   float64, whose gap to the plain float32 logits (the float32 noise
+   floor) sets the float32 bound; every wkv6 launch of one more
    prefill is held to the plain version on its own inputs; in float32, one
    decode step after S tokens is held against a prefill of S + 1 tokens.
    A profiled warm round.
@@ -63,7 +65,18 @@
    launch of one more prefill is held to its plain version on its own
    inputs, and decode is held against prefill in float32.  A profiled
    warm round.
-10. A JSON line per kernel, then ``{"ok": true, "device": ...}`` as the
+10. Row gather and dictionary decode (``take_rows``, ``dict_decode``; no
+    path calls them), run right after phase 7: each wrapper against its
+    plain version on the same CUDA tensors, bit for bit, over float32,
+    bfloat16, int32, int64 and uint8 tables of any bits (NaN payloads,
+    infinities, -0.0), widths 1 to 130, ragged M, int32 and int64 indices,
+    unaligned bases and dictionaries on both sides of the shared-memory
+    limit; out-of-range indices must raise ``IndexError`` and zero rows
+    launch nothing.  Each of the five CUDA wrappers that take floats must
+    refuse an input that requires grad while grad is enabled.  Then four
+    cells timed from CUDA-graph replays: kernel, plain version and
+    ``torch.index_select``, beside the byte bound.
+11. A JSON line per kernel, then ``{"ok": true, "device": ...}`` as the
     last line.
 
 Every check that fails exits non-zero before the last line is printed.
@@ -95,7 +108,8 @@ from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.core import kdispatch, vkernels  # noqa: E402
 from repro_torch.core import ops as rops  # noqa: E402
 from repro_torch.core.arrow import Column, Table  # noqa: E402
-from repro_torch.kernels import build, ops, ref, relational  # noqa: E402
+from repro_torch.kernels import (  # noqa: E402
+    build, ops, ref, relational, take_gather)
 from repro_torch.models import attention  # noqa: E402
 from repro_torch.models.api import ModelAPI  # noqa: E402
 from repro_torch.serve.engine import Request, ServeEngine, pad_prompts  # noqa
@@ -119,7 +133,8 @@ TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 # weights, so the bound is loose and the f32 model carries the tight
 # check: its attention outputs differ by f32 summation order only.  The
 # same bounds hold the recurrent models of phases 8-9, where bf16 may also
-# take half of bf16's own noise (``kernel_vs_plain_prefill``).
+# take half of bf16's own noise, and rwkv6-3b's float32 twice the float32
+# noise floor measured against float64 (``kernel_vs_plain_prefill``).
 LOGIT_TOL = {torch.bfloat16: 4e-2, torch.float32: 1e-3}
 
 
@@ -215,23 +230,27 @@ def check_tokens(outs, n: int, vocab: int, what: str) -> None:
 
 
 def rel_l2(a, b) -> float:
-    a, b = a.float(), b.float()
+    a, b = a.double(), b.double()
     return ((a - b).norm() / b.norm()).item()
 
 
-def compare_logits(a, b, tol: float, what: str) -> None:
-    """Relative L2 and max |diff| / max |b| of two logit tensors, each
-    within ``tol``; both finite."""
-    a, b = a.float(), b.float()
+def rel_max(a, b) -> float:
+    a, b = a.double(), b.double()
+    return ((a - b).abs().max() / b.abs().max()).item()
+
+
+def compare_logits(a, b, tol, what: str) -> None:
+    """Relative L2 and max |diff| / max |b| of two logit tensors, within
+    ``tol`` (one bound for both, or a pair: L2, max); both finite."""
+    tol_l2, tol_max = tol if isinstance(tol, tuple) else (tol, tol)
     check(bool(torch.isfinite(a).all() and torch.isfinite(b).all()),
           f"{what}: non-finite logits")
-    rel = rel_l2(a, b)
-    rel_max = ((a - b).abs().max() / b.abs().max()).item()
+    rel, rmax = rel_l2(a, b), rel_max(a, b)
     agree = (a[:, -1].argmax(-1) == b[:, -1].argmax(-1)).sum().item()
-    print(f"{what}: rel L2 {rel!r}, max |diff| / max |logit| {rel_max!r} "
-          f"(tol {tol!r} each), max |logit| {b.abs().max().item()!r}, argmax "
-          f"agrees on {agree}/{a.shape[0]}")
-    check(rel <= tol and rel_max <= tol, what)
+    print(f"{what}: rel L2 {rel!r} (tol {tol_l2!r}), max |diff| / max "
+          f"|logit| {rmax!r} (tol {tol_max!r}), max |logit| "
+          f"{b.abs().max().item()!r}, argmax agrees on {agree}/{a.shape[0]}")
+    check(rel <= tol_l2 and rmax <= tol_max, what)
 
 
 def build_model(name: str):
@@ -270,7 +289,7 @@ def phase_device():
 
 
 KERNEL_SOURCES = ("flash_attention", "wkv6", "rglru_scan", "splitmix64",
-                  "sentinel_gather", "segreduce")
+                  "sentinel_gather", "segreduce", "take_gather")
 
 
 def phase_build():
@@ -1079,8 +1098,237 @@ def phase_recurrent_times() -> dict:
     return res
 
 
+# --------------------------------------------------------------------------
+# row gather and dictionary decode (take_gather.cu), and the gradient guard
+# --------------------------------------------------------------------------
+
+GATHER_DTYPES = (torch.float32, torch.bfloat16, torch.int32, torch.int64,
+                 torch.uint8)
+GATHER_LINES = {"take_rows": 30, "dict_decode": 63}     # take_gather.py
+# the timed cells: (kernel, what it stands for, table rows R, width W,
+# dtype, int32 indices M); TPC-H v3.0.1 ORDERS and CUSTOMER at SF10
+# (clause 4.2.5) and the 25 names of NATION (clause 4.2.3)
+GATHER_CELLS = (
+    ("take_rows", "SF10 orders -> customers rows", N_CUST, 8, torch.float32,
+     N_ORDERS),
+    ("take_rows", "wide rows", 65_536, 256, torch.float32, 1_048_576),
+    ("dict_decode", "NATION dictionary, in shared memory", len(NATIONS), 16,
+     torch.float32, N_ORDERS),
+    ("dict_decode", "large dictionary, through L2", 4096, 128,
+     torch.bfloat16, 4_000_000),
+)
+
+
+def gather_table(g, R, W, dtype):
+    """R x W elements of ``dtype`` over its whole bit range (NaNs of random
+    payloads among them), drawn on the card; a float table begins with
+    -0.0, inf, -inf and NaN."""
+    size = torch.empty(0, dtype=dtype).element_size()
+    t = torch.randint(0, 256, (R, W * size), dtype=torch.uint8, generator=g,
+                      device=CUDA).view(dtype)
+    if dtype.is_floating_point and t.numel():
+        specials = torch.tensor([-0.0, float("inf"), float("-inf"),
+                                 float("nan")], dtype=dtype, device=CUDA)
+        n = min(4, t.numel())
+        t.view(-1)[:n] = specials[:n]
+    return t
+
+
+def gather_pair(name, table, idx):
+    """(the wrapper's output, its plain version's) on the same tensors."""
+    if name == "take_rows":
+        return ops.take_rows(table, idx), ref.take_rows_ref(table, idx)
+    return ops.dict_decode(idx, table), ref.dict_decode_ref(idx, table)
+
+
+def raises(exc, fn, what: str) -> str:
+    """The message of the ``exc`` that ``fn()`` raises; fails if none."""
+    try:
+        fn()
+    except exc as e:
+        return str(e)
+    check(False, f"{what}: no {exc.__name__} raised")
+
+
+def phase_gather_vs_plain():
+    """take_rows and dict_decode on CUDA tensors against their plain
+    versions on the same tensors, bit for bit, and their edges.  Returns
+    (max bit difference, launches) per kernel."""
+    g = torch.Generator(device=CUDA).manual_seed(10)
+    limit = take_gather.smem_limit()
+    print(f"dict_decode stages a dictionary of up to {limit} bytes in shared "
+          "memory (the device's per-block opt-in limit)")
+    errs = dict.fromkeys(GATHER_LINES, 0.0)
+    n = dict.fromkeys(GATHER_LINES, 0)
+    sides = {True: 0, False: 0}             # dictionaries staged or not
+
+    def held(name, table, idx, what):
+        got, want = gather_pair(name, table, idx)
+        errs[name] = max(errs[name], bit_err(got, want, f"{name} {what}"))
+        n[name] += 1
+        if name == "dict_decode":
+            sides[take_gather.staged(table)] += 1
+    ops.reset_launch_counts()
+    for dtype in GATHER_DTYPES:
+        size = torch.empty(0, dtype=dtype).element_size()
+        for W in (1, 7, 8, 64, 130):
+            at_limit = limit // (W * size)          # rows that just fit
+            tables = [("take_rows", gather_table(g, 1000, W, dtype))] + [
+                ("dict_decode", gather_table(g, R, W, dtype))
+                for R in (25, at_limit, at_limit + 1)]
+            for name, table in tables:
+                R = table.shape[0]
+                for M in (1, 7, 257, 100_003):
+                    for idx_dtype in (torch.int32, torch.int64):
+                        idx = torch.randint(0, R, (M,), generator=g,
+                                            device=CUDA, dtype=idx_dtype)
+                        held(name, table, idx, f"{str(dtype)[6:]} R={R} "
+                             f"W={W} M={M} {str(idx_dtype)[6:]}")
+    # bases off the 16-byte boundary, and a strided table
+    for dtype, shift in ((torch.float32, 1), (torch.bfloat16, 3),
+                         (torch.uint8, 5)):
+        flat = gather_table(g, 1, 1000 * 8 + shift, dtype).view(-1)
+        table = flat[shift:].view(1000, 8)
+        idx = torch.randint(0, 1000, (10_001,), generator=g, device=CUDA)
+        for name in GATHER_LINES:
+            held(name, table, idx, f"{str(dtype)[6:]} base + {shift}")
+            held(name, flat[:8000].view(1000, 8)[:, 1:7], idx,
+                 f"{str(dtype)[6:]} strided")
+    launches = dict(ops.launch_counts)
+    check(all(launches[k] == n[k] for k in GATHER_LINES) and all(
+        v == 0 for k, v in launches.items() if k not in GATHER_LINES),
+        f"gather launches {launches} != one per comparison {n}")
+    check(sides[True] > 0 and sides[False] > 0,
+          f"dictionaries on one side of the shared-memory limit only {sides}")
+    # out-of-range indices raise before any launch; zero rows launch nothing
+    table = gather_table(g, 5, 3, torch.float32)
+    for name in GATHER_LINES:
+        for bad, idx_dtype in (([0, -1], torch.int32), ([5], torch.int32),
+                               ([2 ** 31], torch.int64),
+                               ([2 ** 32 + 1], torch.int64)):
+            idx = torch.tensor(bad, dtype=idx_dtype, device=CUDA)
+            msg = raises(IndexError, lambda: gather_pair(name, table, idx),
+                         f"{name} index {bad}")
+            check("out of range" in msg, f"{name}: {msg}")
+        raises(IndexError, lambda: gather_pair(
+            name, table[:0], torch.zeros(3, dtype=torch.int64, device=CUDA)),
+            f"{name} from zero rows")
+        for idx_dtype in (torch.int32, torch.int64):
+            got, want = gather_pair(name, table,
+                                    torch.empty(0, dtype=idx_dtype,
+                                                device=CUDA))
+            bit_err(got, want, f"{name} of zero rows")
+            check(got.shape == (0, 3), f"{name} of zero rows: {got.shape}")
+    check(dict(ops.launch_counts) == launches,
+          f"an out-of-range or zero-row gather launched: "
+          f"{dict(ops.launch_counts)} vs {launches}")
+    sync()
+    print(f"take_rows and dict_decode vs plain versions, bit for bit: {n} "
+          f"comparisons ({sides[True]} dictionaries staged in shared memory, "
+          f"{sides[False]} read through L2), all identical (max |bit diff| "
+          f"{errs}); launches {launches}; out-of-range indices raise "
+          "IndexError, zero rows launch nothing")
+    return errs, {k: launches[k] for k in GATHER_LINES}
+
+
+def phase_grad_guard() -> None:
+    """Each CUDA wrapper that takes floats refuses an input that requires
+    grad while grad is enabled, before any launch, and runs the same call
+    under ``torch.no_grad()``."""
+    g = torch.Generator(device=CUDA).manual_seed(11)
+    q, k, v = attn_inputs(11, 1, 16, 16, 2, 1, 16, torch.float32)
+    r, kk, vv, w, u, _ = wkv_inputs(g, 1, 4, 2, 16, torch.float32, "model")
+    a, b = torch.rand(2, 1, 4, 8, generator=g, device=CUDA)
+    table = torch.randn(5, 3, generator=g, device=CUDA)
+    idx = torch.tensor([0, 4, 2], device=CUDA)
+    calls = {"flash_attention": (lambda x: ops.flash_attention(x, k, v), q),
+             "wkv6": (lambda x: ops.wkv6(r, kk, vv, w, x), u),
+             "rglru_scan": (lambda x: ops.rglru_scan(x, b), a),
+             "take_rows": (lambda x: ops.take_rows(x, idx), table),
+             "dict_decode": (lambda x: ops.dict_decode(idx, x), table)}
+    for name, (call, x) in calls.items():
+        x = x.detach().requires_grad_()
+        before = ops.launch_counts[name]
+        with torch.enable_grad():
+            msg = raises(RuntimeError, lambda: call(x),
+                         f"{name} on an input that requires grad")
+        check("queue 1, item 6" in msg and ops.launch_counts[name] == before,
+              f"{name}: {msg!r}, launches {ops.launch_counts[name]} after "
+              f"{before}")
+        with torch.no_grad():
+            call(x)
+        check(ops.launch_counts[name] == before + 1,
+              f"{name} did not launch under no_grad")
+    sync()
+    print(f"gradient guard: {list(calls)} each raise RuntimeError on an "
+          "input that requires grad while grad is enabled, before any "
+          "launch, and launch under torch.no_grad()")
+
+
+def phase_gather_times() -> dict:
+    """The four cells: the kernel through its binding (the validating
+    wrapper syncs once per call, which a graph cannot hold), its plain
+    version and ``torch.index_select`` from CUDA-graph replays, beside the
+    bound: the indices, each distinct source row once and the output once
+    at the memory rate."""
+    g = torch.Generator(device=CUDA).manual_seed(12)
+    smi = smi_line()
+    res = {name: [] for name in GATHER_LINES}
+    for name, label, R, W, dtype, M in GATHER_CELLS:
+        table = torch.randn(R, W, generator=g, device=CUDA).to(dtype)
+        idx = torch.randint(0, R, (M,), generator=g, device=CUDA,
+                            dtype=torch.int32)
+        if name == "take_rows":
+            def kernel():
+                return take_gather.take_rows_cuda(table, idx)
+
+            def plain():
+                return ref.take_rows_ref(table, idx)
+        else:
+            def kernel():
+                return take_gather.dict_decode_cuda(idx, table)
+
+            def plain():
+                return ref.dict_decode_ref(idx, table)
+
+        def library():
+            return torch.index_select(table, 0, idx)
+        err = bit_err(kernel(), library(), f"{name} [{label}] vs index_select")
+        kern, pl = timed_pair(kernel, plain)
+        lib = time_ms(library)
+        row = W * table.element_size()
+        distinct = torch.unique(idx).numel()
+        nbytes = M * idx.element_size() + distinct * row + M * row
+        bound_ms, by = bound(nbytes, 0, F32_FLOP_PER_S)
+        staged = name == "dict_decode" and take_gather.staged(table)
+        cell = dict(cell=label, R=R, W=W, M=M, dtype=str(dtype)[6:],
+                    index="int32", staged=staged, ms=statistics.median(kern),
+                    plain_ms=statistics.median(pl), bound_ms=bound_ms,
+                    bound_by=by, library_ms=statistics.median(lib))
+        res[name].append(cell)
+        print(f"{name} [{label}] R {R} x W {W} {cell['dtype']}, M {M} int32 "
+              f"indices{', dictionary in shared memory' if staged else ''}, "
+              f"ms per call: kernel {spread(kern)}, plain {spread(pl)}, "
+              f"library (index_select) {spread(lib)} (bits equal to the "
+              f"kernel's, max |bit diff| {err!r}); bound {bound_ms!r} ms by "
+              f"{by} ({nbytes} bytes, {distinct} distinct rows); kernel at "
+              f"{bound_ms / cell['ms']:.4f} of the bound [{smi}]")
+        del table, idx
+        torch.cuda.empty_cache()
+    return res
+
+
+@contextlib.contextmanager
+def patched(patches):
+    """Each (target, name, fn) of ``patches`` in place for the block."""
+    with contextlib.ExitStack() as stack:
+        for target, name, fn in patches:
+            stack.enter_context(mock.patch.object(target, name, fn))
+        yield
+
+
 def kernel_vs_plain_prefill(api, tokens, shape, plain_patches, what: str,
-                            served_first) -> None:
+                            served_first, f64_patches=None) -> None:
     """The prefill logits through the kernels against those with each
     kernel swapped for its plain version, with float32 compute on the
     same weights (the tight check, ``LOGIT_TOL``) and in bf16.  In bf16
@@ -1088,19 +1336,43 @@ def kernel_vs_plain_prefill(api, tokens, shape, plain_patches, what: str,
     random layers, in rwkv6-3b's slowly decaying states most of all, so
     the bf16 bound is ``LOGIT_TOL``'s or half of the gap that bf16 rounding
     alone opens between the plain path's bf16 and float32 logits, whichever
-    is larger: the kernel may not add more than half of bf16's own noise."""
+    is larger: the kernel may not add more than half of bf16's own noise.
+
+    With ``f64_patches`` (float64 twins of the plain versions) the plain
+    path runs once more with float64 compute on the same f32 weights, and
+    its gap to the plain float32 logits is the float32 noise floor.  Two
+    float32 paths that each stand that far from float64 may stand twice as
+    far from each other (triangle inequality), so each float32 bound (L2
+    and max) is ``LOGIT_TOL``'s or twice the floor of its own measure,
+    whichever is larger.  The model's own float32 steps (the norms, the
+    RWKV decay and group norm) stay float32 in that path, as the model
+    defines them."""
     logits = {}
     for dtype in (torch.bfloat16, torch.float32):
         with compute_dtype(api, dtype):
             logits[dtype], _ = api.prefill({"tokens": tokens}, shape)
-            with contextlib.ExitStack() as stack:
-                for target, name, fn in plain_patches:
-                    stack.enter_context(mock.patch.object(target, name, fn))
+            with patched(plain_patches):
                 logits[dtype, "plain"], _ = api.prefill({"tokens": tokens},
                                                         shape)
-    sync()
     f32, bf16 = torch.float32, torch.bfloat16
-    compare_logits(logits[f32], logits[f32, "plain"], LOGIT_TOL[f32],
+    tol32 = LOGIT_TOL[f32]
+    if f64_patches is not None:
+        with compute_dtype(api, torch.float64), patched(f64_patches):
+            f64, _ = api.prefill({"tokens": tokens}, shape)
+        sync()
+        check(bool(torch.isfinite(f64).all()), f"{what}: non-finite float64 "
+              "logits")
+        floor = (rel_l2(logits[f32, "plain"], f64),
+                 rel_max(logits[f32, "plain"], f64))
+        tol32 = tuple(max(LOGIT_TOL[f32], 2 * x) for x in floor)
+        print(f"{what}: float32 noise floor, plain path's float32 vs float64 "
+              f"logits: rel L2 {floor[0]!r}, max |diff| / max |logit| "
+              f"{floor[1]!r}; float32 bounds (the larger of "
+              f"{LOGIT_TOL[f32]!r} and twice the floor) {tol32[0]!r} (L2), "
+              f"{tol32[1]!r} (max)")
+        del f64
+    sync()
+    compare_logits(logits[f32], logits[f32, "plain"], tol32,
                    f"{what} prefill logits, float32 compute, kernels vs "
                    "plain versions")
     floor = rel_l2(logits[bf16, "plain"], logits[f32, "plain"])
@@ -1179,6 +1451,22 @@ def plain_wkv6(r, k, v, w, u, state=None):
     return ref.wkv6_ref(r, k, v, w, u, state)
 
 
+def wkv6_f64(r, k, v, w, u, state=None):
+    """The float64 twin of ``ref.wkv6_ref`` (which computes in float32 by
+    design): the same loop in float64; out in r's dtype, state float64."""
+    B, S, H, N = r.shape
+    st = torch.zeros((B, H, N, N), dtype=torch.float64, device=r.device) \
+        if state is None else state.double()
+    u = u.double()[None, :, :, None]
+    rf, kf, vf, wf = (x.double() for x in (r, k, v, w))
+    outs = []
+    for t in range(S):
+        kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]
+        outs.append(torch.einsum("bhn,bhnm->bhm", rf[:, t], st + u * kv))
+        st = st * wf[:, t, :, :, None] + kv
+    return torch.stack(outs, dim=1).to(r.dtype), st
+
+
 def phase_serve_rwkv() -> dict:
     cfg, api = build_model("rwkv6-3b")
     batch, max_seq, max_new = 8, 1024, 32
@@ -1196,7 +1484,8 @@ def phase_serve_rwkv() -> dict:
     padded = torch.from_numpy(pad_prompts(rounds[0], batch)).to(CUDA)
     kernel_vs_plain_prefill(api, padded, engine.shape,
                             [(ops, "wkv6", plain_wkv6)], cfg.name,
-                            [o[0] for o in outs[0]])
+                            [o[0] for o in outs[0]],
+                            f64_patches=[(ops, "wkv6", wkv6_f64)])
     each_launch_vs_plain(api, padded, engine.shape,
                          [("wkv6", plain_wkv6, WKV_TOL)], cfg.name)
     decode_vs_prefill(api, padded, engine.shape, cfg.name)
@@ -1267,6 +1556,9 @@ def main() -> int:
     rel_launches = phase_star()
     rec_err = phase_recurrent_vs_plain()
     rec_times = phase_recurrent_times()
+    gather_err, gather_launches = phase_gather_vs_plain()
+    phase_grad_guard()
+    gather_times = phase_gather_times()
     rwkv_launches = phase_serve_rwkv()
     rgemma_launches = phase_serve_rgemma()
     print(f"device: {smi_line()}")
@@ -1299,6 +1591,17 @@ def main() -> int:
             launches=rel_launches[name], max_abs_err=rel_err[name],
             ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
             bound_by=t["bound_by"], library_ms=t["library_ms"]))
+    for name, line in GATHER_LINES.items():
+        cells = gather_times[name]      # the first cell is the headline
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="src/repro_torch/kernels/csrc/take_gather.cu",
+            replaces=f"src/repro/kernels/take_gather.py:{line}",
+            launches=gather_launches[name], launches_by_path={},
+            max_abs_err=gather_err[name],
+            **{k: cells[0][k] for k in ("ms", "plain_ms", "bound_ms",
+                                        "bound_by", "library_ms")},
+            cells=cells))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

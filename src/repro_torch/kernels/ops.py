@@ -3,10 +3,10 @@
 The tensor's device decides the path: a CUDA tensor launches the kernel
 (or raises), a CPU tensor takes the plain PyTorch version in ``ref.py``.
 There is no environment override and no fallback from CUDA to the plain
-version.  Empty relational outputs launch nothing on either device (the
-recurrences refuse empty inputs), and so does one case with a non-empty
-output: a sentinel gather from an empty source, where every index is a
-miss.  As in the TPU wrapper (``_sentinel_gather`` of
+version.  Empty relational and gather outputs launch nothing on either
+device (the recurrences refuse empty inputs), and so does one case with a
+non-empty output: a sentinel gather from an empty source, where every
+index is a miss.  As in the TPU wrapper (``_sentinel_gather`` of
 ``src/repro/kernels/relational.py``), it is answered with a tensor of the
 fill made by ``torch.full`` on the card, and counts no launch.  Inputs
 are validated the same way on both devices, so a call that the kernel
@@ -22,6 +22,13 @@ counts ``gather_payload``, which share those kernels.
 
 The relational wrappers take and return tensors: 64-bit hashes and uint64
 sums travel as int64 tensors that carry the uint64 bits.
+
+No kernel has a backward yet.  On a CUDA tensor every wrapper refuses,
+with a ``RuntimeError`` before any launch, an input that requires grad
+while grad is enabled (``_refuse_grad``): the kernel's output would carry
+no ``grad_fn`` and cut the gradient without a word.  Serving runs under
+``torch.inference_mode()`` and is not affected; the plain versions on the
+CPU stay differentiable.
 """
 
 from __future__ import annotations
@@ -30,14 +37,15 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from . import ref, relational
+from . import ref, relational, take_gather
 from .flash_attention import DTYPES, SUPPORTED_HD, flash_attention_cuda
 from .rglru_scan import rglru_scan_cuda
 from .wkv6 import SUPPORTED_N, wkv6_cuda
 
 launch_counts: Dict[str, int] = {
     "flash_attention": 0, "wkv6": 0, "rglru_scan": 0, "hash_fixed": 0,
-    "combine_hashes": 0, "filter_join_gather": 0, "segreduce": 0}
+    "combine_hashes": 0, "filter_join_gather": 0, "segreduce": 0,
+    "take_rows": 0, "dict_decode": 0}
 
 
 def reset_launch_counts() -> None:
@@ -55,6 +63,18 @@ def _on_cuda(*ts: torch.Tensor) -> bool:
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"no kernel for device {dev}")
     return dev.type == "cuda"
+
+
+def _refuse_grad(name: str, *ts: torch.Tensor) -> None:
+    """Raise before a launch when grad is enabled and an input requires
+    it: the kernels have no backward yet."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        raise RuntimeError(
+            f"{name}: an input requires grad, but the CUDA kernel has no "
+            "backward yet (ROADMAP.md queue 1, item 6 brings the backward "
+            "kernels); call it under torch.no_grad() or "
+            "torch.inference_mode(), or on CPU tensors, whose plain "
+            "version is differentiable")
 
 
 def _check_attention(q, k, v, window: int) -> None:
@@ -105,6 +125,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
         return ref.attention_ref(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
+    _refuse_grad("flash_attention", q, k, v)
     out = flash_attention_cuda(q, k, v, causal=causal, window=window)
     launch_counts["flash_attention"] += 1
     return out
@@ -148,6 +169,7 @@ def wkv6(r, k, v, w, u, state=None):
                          f"supported N: {SUPPORTED_N})")
     if not cuda:
         return ref.wkv6_ref(r, k, v, w, u, state)
+    _refuse_grad("wkv6", *ts)
     out = wkv6_cuda(*(t.contiguous() for t in (r, k, v, w, u)),
                     None if state is None else state.contiguous())
     launch_counts["wkv6"] += 1
@@ -174,6 +196,7 @@ def rglru_scan(a, b, h0=None):
                          f"kernel's grid limit of 65535 ({tuple(a.shape)})")
     if not cuda:
         return ref.rglru_ref(a, b, h0)
+    _refuse_grad("rglru_scan", *ts)
     out = rglru_scan_cuda(a.contiguous(), b.contiguous(),
                           None if h0 is None else h0.contiguous())
     launch_counts["rglru_scan"] += 1
@@ -374,3 +397,63 @@ def grouped_max(values: torch.Tensor, order: torch.Tensor,
     values' dtype, uint8 for bool; counts int64)."""
     acc, counts = _segreduce("max", values, order, starts, valid)
     return _narrow(acc, _extreme_dtype(values)), counts
+
+
+# --------------------------------------------------------------------------
+# row gather and dictionary decode (take_gather.cu)
+# --------------------------------------------------------------------------
+
+#: what the gathers take: every 1/2/4/8-byte element type, copied as bits
+GATHER_DTYPES = FIXED_DTYPES + (torch.bfloat16,)
+INDEX_DTYPES = (torch.int32, torch.int64)
+
+
+def _row_gather(what: str, table: torch.Tensor, idx: torch.Tensor, plain,
+                kernel) -> torch.Tensor:
+    """The host contract of the JAX wrappers (``repro.kernels.ops``): the
+    indices as given (before any narrowing) must lie in [0, R), else
+    ``IndexError``; zero rows give an empty (0, W) gather."""
+    if table.dim() != 2 or idx.dim() != 1:
+        raise ValueError(f"{what}: a 2-D table and 1-D indices expected, got "
+                         f"{tuple(table.shape)} and {tuple(idx.shape)}")
+    if table.dtype not in GATHER_DTYPES or idx.dtype not in INDEX_DTYPES:
+        raise TypeError(f"{what}: table of {GATHER_DTYPES} and indices of "
+                        f"{INDEX_DTYPES} expected, got {table.dtype} and "
+                        f"{idx.dtype}")
+    cuda = _on_cuda(table, idx)
+    if cuda:
+        _refuse_grad(what, table)
+    R, W = table.shape
+    M = idx.numel()
+    if M:
+        lo, hi = torch.stack(torch.aminmax(idx)).tolist()     # one sync
+        if lo < 0 or hi >= R:
+            raise IndexError(f"{what}: index {lo if lo < 0 else hi} out of "
+                             f"range for {R} rows")
+    if not cuda:
+        return plain(table, idx)
+    if M == 0 or W == 0:
+        return torch.empty((M, W), dtype=table.dtype, device=table.device)
+    out = kernel(table.contiguous(), idx.contiguous())
+    launch_counts[what] += 1
+    return out
+
+
+def take_rows(values: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
+    """out[i] = values[indices[i]]: (R, W) x (M,) -> (M, W) in values'
+    dtype, bits copied (``repro.kernels.ops.take_rows``).  Indices int32
+    or int64; one outside [0, R) raises IndexError."""
+    return _row_gather("take_rows", values, indices, ref.take_rows_ref,
+                       take_gather.take_rows_cuda)
+
+
+def dict_decode(codes: torch.Tensor, dictionary: torch.Tensor
+                ) -> torch.Tensor:
+    """out[i] = dictionary[codes[i]]: (M,) x (R, W) -> (M, W), bits copied
+    (``repro.kernels.ops.dict_decode``, with the gather contract of its
+    oracle ``ref.dict_decode_ref``; the TPU kernel's one-hot matmul turns
+    0 x inf into NaN, ROADMAP queue 3 item b).  Codes int32 or int64; one
+    outside [0, R) raises IndexError."""
+    return _row_gather("dict_decode", dictionary, codes,
+                       lambda d, c: ref.dict_decode_ref(c, d),
+                       lambda d, c: take_gather.dict_decode_cuda(c, d))

@@ -65,6 +65,19 @@ def wkv6_ref(r, k, v, w, u, state=None):
     return torch.stack(outs, dim=1).to(r.dtype), st
 
 
+def take_rows_ref(values, indices):
+    """Row gather: out[i] = values[indices[i]] (the JAX oracle
+    ``ref.take_rows_ref``).  values: (R, W); indices: (M,) int32 or int64
+    in [0, R).  Plain indexing copies each element's bits."""
+    return values[indices]
+
+
+def dict_decode_ref(codes, dictionary):
+    """Dictionary decode: out[i] = dictionary[codes[i]] (the JAX oracle
+    ``ref.dict_decode_ref``), the same row gather."""
+    return dictionary[codes]
+
+
 # --------------------------------------------------------------------------
 # relational kernels: bits in 64-bit signed words
 # --------------------------------------------------------------------------

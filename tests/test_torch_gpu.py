@@ -3,8 +3,10 @@ flash attention at the shapes of tests/test_torch_kernels.py, in float32
 and bfloat16, and at hd 256 with a window; the WKV-6 and RG-LRU scans at
 ragged lengths and widths; the relational kernels (splitmix64, sentinel
 gather, segment reductions) bit for bit over every dtype family and edge
-case, and the relational ops on the card against the same ops on the CPU.  Skips without
-a CUDA card; run it there with
+case, and the relational ops on the card against the same ops on the CPU;
+the row gather and dictionary decode bit for bit, and the gradient guard
+of every wrapper that takes floats.  Skips without a CUDA card; run it
+there with
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
@@ -15,7 +17,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core import kdispatch, ops as rops  # noqa: E402
 from repro_torch.core.arrow import Table  # noqa: E402
-from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import ops, ref, take_gather  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -299,3 +301,130 @@ def test_star_query_on_the_card_equals_the_cpu(cuda):
             j = rops.join(orders, cust, "cust", how="left")
             out[dev] = raw_buffers(rops.group_by(j, "country", aggs))
     assert out["cuda"] == out["cpu"]
+
+
+# --------------------------------------------------------------------------
+# row gather and dictionary decode: bit for bit against the plain versions
+# --------------------------------------------------------------------------
+
+GATHER_DTYPES = [torch.float32, torch.bfloat16, torch.int32, torch.int64,
+                 torch.uint8]
+
+
+def gather_table(g, R, W, dtype):
+    """R x W elements over the whole bit range of ``dtype`` (NaNs of
+    random payloads among them); a float table begins with -0.0, inf,
+    -inf and NaN."""
+    size = torch.empty(0, dtype=dtype).element_size()
+    t = torch.randint(0, 256, (R, W * size), dtype=torch.uint8, generator=g,
+                      device="cuda").view(dtype)
+    if dtype.is_floating_point:
+        specials = torch.tensor([-0.0, float("inf"), float("-inf"),
+                                 float("nan")], dtype=dtype, device="cuda")
+        n = min(4, t.numel())
+        t.view(-1)[:n] = specials[:n]
+    return t
+
+
+def gather(kind, table, idx):
+    return ops.take_rows(table, idx) if kind == "take_rows" \
+        else ops.dict_decode(idx, table)
+
+
+def plain_gather(kind, table, idx):
+    return ref.take_rows_ref(table, idx) if kind == "take_rows" \
+        else ref.dict_decode_ref(idx, table)
+
+
+@pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64],
+                         ids=["int32", "int64"])
+@pytest.mark.parametrize("W", [1, 7, 8, 130])
+@pytest.mark.parametrize("dtype", GATHER_DTYPES, ids=lambda d: str(d)[6:])
+@pytest.mark.parametrize("kind", ["take_rows", "dict_decode"])
+def test_gather_matches_plain_bit_for_bit(cuda, kind, dtype, W, idx_dtype):
+    g = torch.Generator(device=cuda).manual_seed(W)
+    table = gather_table(g, 25 if kind == "dict_decode" else 1000, W, dtype)
+    for M in (1, 7, 257, 100_003):
+        idx = torch.randint(0, table.shape[0], (M,), generator=g,
+                            device=cuda, dtype=idx_dtype)
+        before = ops.launch_counts[kind]
+        got = gather(kind, table, idx)
+        assert ops.launch_counts[kind] == before + 1
+        assert_same_bits(got, plain_gather(kind, table, idx))
+
+
+@pytest.mark.parametrize("side", [0, 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=lambda d: str(d)[6:])
+def test_dict_decode_on_both_sides_of_the_shared_memory_limit(cuda, dtype,
+                                                             side):
+    """A dictionary that just fits the per-block shared memory is staged
+    there; one row more is read through L2."""
+    W = 64
+    R = take_gather.smem_limit() // (W * torch.empty(0, dtype=dtype)
+                                     .element_size()) + side
+    g = torch.Generator(device=cuda).manual_seed(R)
+    table = gather_table(g, R, W, dtype)
+    assert take_gather.staged(table) == (side == 0)
+    idx = torch.randint(0, R, (100_003,), generator=g, device=cuda)
+    assert_same_bits(ops.dict_decode(idx, table),
+                     ref.dict_decode_ref(idx, table))
+
+
+@pytest.mark.parametrize("kind", ["take_rows", "dict_decode"])
+def test_gather_unaligned_and_strided_tables(cuda, kind):
+    g = torch.Generator(device=cuda).manual_seed(1)
+    idx = torch.randint(0, 1000, (10_001,), generator=g, device=cuda)
+    for dtype, shift in ((torch.float32, 1), (torch.bfloat16, 3),
+                         (torch.uint8, 5)):
+        flat = gather_table(g, 1, 1000 * 8 + shift, dtype).view(-1)
+        for table in (flat[shift:].view(1000, 8),
+                      flat[:8000].view(1000, 8)[:, 1:7]):
+            assert_same_bits(gather(kind, table, idx),
+                             plain_gather(kind, table, idx))
+
+
+@pytest.mark.parametrize("kind", ["take_rows", "dict_decode"])
+def test_gather_edges_launch_nothing(cuda, kind):
+    table = torch.randn(5, 3, device=cuda)
+    before = ops.launch_counts[kind]
+    for bad, dtype in (([0, -1], torch.int32), ([5], torch.int32),
+                       ([2 ** 31], torch.int64), ([2 ** 32 + 1], torch.int64)):
+        with pytest.raises(IndexError, match="out of range"):
+            gather(kind, table, torch.tensor(bad, dtype=dtype, device=cuda))
+    with pytest.raises(IndexError, match="out of range"):
+        gather(kind, table[:0], torch.zeros(2, dtype=torch.int64,
+                                            device=cuda))
+    out = gather(kind, table, torch.empty(0, dtype=torch.int32, device=cuda))
+    assert out.shape == (0, 3) and out.dtype == table.dtype
+    assert ops.launch_counts[kind] == before
+
+
+@pytest.mark.parametrize("kind", ["flash_attention", "wkv6", "rglru_scan",
+                                  "take_rows", "dict_decode"])
+def test_wrappers_refuse_inputs_that_require_grad(cuda, kind):
+    """The kernels have no backward yet: with grad enabled, an input that
+    requires grad is refused before any launch; under no_grad the same
+    call launches."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (torch.randn(1, 16, h, 16, generator=g, device=cuda)
+               for h in (2, 1, 1))
+    r, kk, vv, w, u, _ = wkv_inputs(g, 1, 4, 2, 16, torch.float32)
+    a, b = torch.rand(2, 1, 4, 8, generator=g, device=cuda)
+    table = torch.randn(5, 3, generator=g, device=cuda)
+    idx = torch.tensor([0, 4, 2], device=cuda)
+    call, x = {"flash_attention": (lambda x: ops.flash_attention(x, k, v), q),
+               "wkv6": (lambda x: ops.wkv6(r, kk, vv, w, x), u),
+               "rglru_scan": (lambda x: ops.rglru_scan(x, b), a),
+               "take_rows": (lambda x: ops.take_rows(x, idx), table),
+               "dict_decode": (lambda x: ops.dict_decode(idx, x), table)
+               }[kind]
+    x = x.detach().requires_grad_()
+    before = ops.launch_counts[kind]
+    with torch.enable_grad(), pytest.raises(RuntimeError,
+                                            match="queue 1, item 6"):
+        call(x)
+    assert ops.launch_counts[kind] == before
+    with torch.no_grad():
+        call(x)
+    assert ops.launch_counts[kind] == before + 1
