@@ -6,12 +6,18 @@
 1. Device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions; TF32 off, so float32 products are full float32.
 2. Build: every kernel source of src/repro_torch/kernels/csrc, one nvcc
-   each for sm_90a, all started together (each one's set-up time).
+   each for sm_90a, all started together (each one's set-up time).  The
+   tensor-core instructions (HMMA, HGMMA) of each flash instantiation are
+   counted in the built library (``cuobjdump -sass``): the run fails if a
+   bf16 instantiation has none.  Each instantiation's registers, shared
+   memory, spills and resident blocks per SM, as the card reports them.
 3. Flash attention: held against its plain PyTorch version
    (``ref.attention_ref``) on the same CUDA tensors, at the serving shape
-   and at the edge cases; timed at the serving shape from the card's clock
-   beside PyTorch's ``scaled_dot_product_attention`` (timed only; the port
-   never calls it) and the kernel's bound.
+   and at the tile edges (ragged and cross lengths, every head dim, G 3 to
+   16, a window whose first tile is not tile 0, strided and unaligned q);
+   timed at the serving shape from the card's clock beside PyTorch's
+   ``scaled_dot_product_attention`` (timed only; the port never calls it)
+   and the kernel's bound.
 4. Serve: smollm-135m at full width (30 layers, d_model 576, random
    weights drawn on the card from a seeded CUDA generator) through
    ``ModelAPI`` + ``ServeEngine``, 2 rounds of batch 8, prompts of 256-512
@@ -88,9 +94,12 @@ from __future__ import annotations
 
 import contextlib
 import cProfile
+import hashlib
 import json
 import os
 import pstats
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -109,7 +118,7 @@ from repro_torch.core import kdispatch, vkernels  # noqa: E402
 from repro_torch.core import ops as rops  # noqa: E402
 from repro_torch.core.arrow import Column, Table  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
-    build, ops, ref, relational, take_gather)
+    build, flash_attention, ops, ref, relational, take_gather)
 from repro_torch.models import attention  # noqa: E402
 from repro_torch.models.api import ModelAPI  # noqa: E402
 from repro_torch.serve.engine import Request, ServeEngine, pad_prompts  # noqa
@@ -120,10 +129,16 @@ BF16_FLOP_PER_S = 989e12
 F32_FLOP_PER_S = 67e12          # float32 outside the tensor cores
 
 SERVE_SHAPE = dict(B=8, S=512, T=512, H=9, KV=3, hd=64)
-# bf16: kernel and plain version both compute in f32 and round once to
-# bf16, so they differ by at most about one bf16 ulp (2^-8 relative).
-# f32: the two sum up to T = 512 terms in different orders; the worst
-# case is T * 2^-24 * max|v| ~ 1.2e-4 at |v| <= 4 (normal inputs).
+# bf16: the plain version computes in f32 and rounds once to bf16; the
+# tensor-core kernel also rounds P to bf16 before the P V product (the
+# JAX model's chunked_attention does the same).  Each p moves by at most
+# 2^-8 of itself and P sums to 1 over a row, so the output moves by at
+# most 2^-8 of the largest |v| it averages, and over many keys the errors
+# partly cancel: tests/test_torch_flash_numerics.py measures at most one
+# bf16 ulp of the output (0.0156 at |out| up to 4), so one output ulp
+# still dominates the error and the bound stays 2e-2.
+# f32: the FMA kernel; the two sum up to T = 512 terms in different
+# orders; the worst case is T * 2^-24 * max|v| ~ 1.2e-4 at |v| <= 4.
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 # Prefill logits, kernel vs the model's plain attention (chunked_attention,
 # which rounds the probabilities to bf16 before the PV product, as the JAX
@@ -292,10 +307,60 @@ KERNEL_SOURCES = ("flash_attention", "wkv6", "rglru_scan", "splitmix64",
                   "sentinel_gather", "segreduce", "take_gather")
 
 
-def phase_build():
+def phase_build() -> dict:
     secs = build.build_all(KERNEL_SOURCES)
     for name, t in secs.items():
-        print(f"built {name} (nvcc, sm_90a) and loaded it in {t:.1f} s")
+        digest = hashlib.sha256(
+            (build.CSRC / f"{name}.cu").read_bytes()).hexdigest()
+        print(f"built {name} (nvcc, sm_90a) and loaded it in {t:.1f} s; "
+              f"source sha256 {digest[:16]}")
+    return flash_instantiations()
+
+
+def tensor_core_counts(lib) -> dict:
+    """HMMA and HGMMA instructions in each flash kernel of the built
+    library ``lib`` (``cuobjdump -sass``): {"bfloat16 hd 64": n, ...}."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.path.dirname(build.nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts, cur = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            hd = re.search(r"Li(\d+)EE", m.group(1))
+            kind = "bfloat16" if "flash_fwd_bf16_kernel" in m.group(1) \
+                else "float32"
+            cur = f"{kind} hd {hd.group(1) if hd else '?'}"
+            counts.setdefault(cur, 0)
+        elif cur is not None and re.search(r"\b(HMMA|HGMMA)\b", line):
+            counts[cur] += 1
+    return counts
+
+
+def flash_instantiations() -> dict:
+    """Tensor-core instructions in the built flash library, and what the
+    card reports for each instantiation; fails if a bf16 one has no
+    tensor-core instruction."""
+    counts = tensor_core_counts(build.library_path("flash_attention"))
+    print(f"flash_attention tensor-core instructions (HMMA/HGMMA in SASS): "
+          f"{counts}")
+    insts = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for hd in flash_attention.SUPPORTED_HD:
+            name = f"{str(dtype)[6:]} hd {hd}"
+            attrs = flash_attention.kernel_attrs(dtype, hd)
+            n = counts.get(name, 0)
+            insts.append(dict(dtype=str(dtype)[6:], hd=hd,
+                              tensor_core_instructions=n, **attrs))
+            print(f"flash_attention {name}: {n} tensor-core instructions, "
+                  f"{attrs}")
+            if dtype == torch.bfloat16:
+                check(n > 0, f"flash_attention {name}: no HMMA/HGMMA "
+                      "instruction in the built kernel")
+    return dict(tensor_core_instructions=sum(
+        i["tensor_core_instructions"] for i in insts
+        if i["dtype"] == "bfloat16"), instantiations=insts)
 
 
 def phase_kernel_vs_plain():
@@ -312,10 +377,35 @@ def phase_kernel_vs_plain():
         ("hd 128", dict(sv, H=8, KV=2, hd=128), torch.bfloat16, True, 0),
         ("hd 128 f32 window 64", dict(sv, H=8, KV=2, hd=128),
          torch.float32, True, 64),
+        # the bf16 kernel's tile edges (BQ 64, BK 64 or 32 at hd 256)
+        ("ragged cross S 100 T 130", dict(sv, B=2, S=100, T=130, H=4, KV=2),
+         torch.bfloat16, True, 0),
+        ("ragged cross non-causal window 48",
+         dict(sv, B=2, S=100, T=130, H=4, KV=2, hd=16), torch.bfloat16,
+         False, 48),
+        ("hd 16", dict(sv, H=4, KV=2, hd=16), torch.bfloat16, True, 0),
+        ("hd 32", dict(sv, H=4, KV=2, hd=32), torch.bfloat16, True, 0),
+        ("hd 256 G 16", dict(sv, B=2, H=16, KV=1, hd=256), torch.bfloat16,
+         True, 0),
+        ("hd 256 G 16 ragged non-causal", dict(sv, B=2, S=77, T=150, H=16,
+                                               KV=1, hd=256),
+         torch.bfloat16, False, 0),
+        ("window 128, S=T 1000 (first tile past 0)",
+         dict(sv, B=1, S=1000, T=1000), torch.bfloat16, True, 128),
+        ("hd 256 window 128, S=T 1000 (first tile past 0)",
+         dict(sv, B=1, S=1000, T=1000, H=16, KV=1, hd=256), torch.bfloat16,
+         True, 128),
+        ("strided q (padded heads)", sv, torch.bfloat16, True, 0),
+        ("unaligned q (padded hd)", dict(sv, B=2, S=200, T=200),
+         torch.bfloat16, True, 0),
     ]
     errs = {}
     for i, (name, shp, dtype, causal, window) in enumerate(cases):
         q, k, v = attn_inputs(i, dtype=dtype, **shp)
+        if name.startswith("strided q"):   # strides stay 16-byte multiples
+            q = F.pad(q, (0, 0, 0, 1))[:, :, :shp["H"]]
+        elif name.startswith("unaligned q"):   # strides of hd + 4 elements
+            q = F.pad(q, (0, 4))[..., :shp["hd"]]
         out = ops.flash_attention(q, k, v, causal=causal, window=window)
         want = ref.attention_ref(q, k, v, causal=causal, window=window)
         sync()
@@ -414,12 +504,17 @@ def phase_profile(engine, reqs):
     profile_run(lambda: engine.run_batch(reqs), "one warm round")
 
 
+# the hand-written kernels a served model launches, as the profiler names them
+OWN_KERNEL_RE = re.compile(r"\b(flash_fwd_kernel|flash_fwd_bf16_kernel"
+                           r"|wkv6_kernel|rglru_scan_kernel)\b")
+
+
 def profile_run(fn, label: str, top: int = 6) -> dict:
     """Run ``fn`` once under torch.profiler and print the device's busy
     share of the wall time (union of CUDA kernel and copy intervals), the
-    part of it spent copying, and the largest entries by device time.  The
-    profiler adds host time, so the idle share it gives is an upper
-    bound."""
+    part of it spent copying, the largest entries by device time, and the
+    time and busy share of each of the port's model kernels.  The profiler
+    adds host time, so the idle share it gives is an upper bound."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -450,6 +545,16 @@ def profile_run(fn, label: str, top: int = 6) -> dict:
           f"{copy_us / 1e3:.2f} ms; {len(kernels)} device events")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
         print(f"  {us / 1e3:9.3f} ms  {us / busy:.4f} of busy  {name[:90]}")
+    own = {}
+    for e in kernels:
+        m = OWN_KERNEL_RE.search(e.name)
+        if m:
+            us, n = own.get(m.group(1), (0.0, 0))
+            own[m.group(1)] = (us + e.time_range.elapsed_us(), n + 1)
+    if own:
+        print("  the port's model kernels in it: " + "; ".join(
+            f"{name} {us / 1e3:.3f} ms ({us / busy:.4f} of busy, {n} "
+            f"launches)" for name, (us, n) in sorted(own.items())))
     return dict(wall_ms=wall_us / 1e3, busy_ms=busy / 1e3,
                 copy_ms=copy_us / 1e3)
 
@@ -1547,7 +1652,7 @@ def main() -> int:
               "needs a CUDA card", flush=True)
         return 1
     phase_device()
-    phase_build()
+    flash_insts = phase_build()
     max_err = phase_kernel_vs_plain()
     times = phase_times()
     launches = phase_serve()
@@ -1569,7 +1674,7 @@ def main() -> int:
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:30",
         launches=sum(flash_paths.values()), launches_by_path=flash_paths,
-        max_abs_err=max_err, **times,
+        max_abs_err=max_err, **times, **flash_insts,
         hd256=dict(max_abs_err=rec_err["flash_hd256"],
                    serving=rec_times["flash_hd256_serving"],
                    long=rec_times["flash_hd256_long"]))]

@@ -2,10 +2,11 @@
 
 ``csrc/flash_attention.cu`` replaces the TPU kernel
 ``src/repro/kernels/flash_attention.py::_flash_kernel``; its header says
-what bounds it on the H100 and how the design answers that.  This module
-only allocates the output, passes pointers, strides and the current
-stream through ``ctypes`` and raises on a failed launch.  Callers go
-through ``ops.flash_attention``, which validates the inputs first.
+what bounds it on the H100 and how the design answers that (bf16 on the
+tensor cores, float32 on FMAs).  This module only allocates the output,
+passes pointers, strides and the current stream through ``ctypes`` and
+raises on a failed launch.  Callers go through ``ops.flash_attention``,
+which validates the inputs first.
 """
 
 from __future__ import annotations
@@ -51,3 +52,22 @@ def flash_attention_cuda(q, k, v, *, causal: bool, window: int):
             f"flash_attention kernel launch failed: cudaError_t {err} "
             f"(q {tuple(q.shape)}, k {tuple(k.shape)}, {q.dtype})")
     return out
+
+
+ATTRS = ("registers", "dynamic_smem", "static_smem", "local_bytes",
+         "threads", "blocks_per_sm")
+
+
+def kernel_attrs(dtype, hd: int) -> dict:
+    """What the card reports for the kernel that ``dtype`` and ``hd``
+    launch: registers and local (spill) bytes a thread, dynamic and static
+    shared memory bytes and threads a block, blocks resident on one SM."""
+    fn = build.load("flash_attention").flash_attention_attrs
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * len(ATTRS))()
+    err = fn(int(dtype == torch.bfloat16), hd, out)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_attrs failed: cudaError_t {err}"
+                           f" ({dtype}, hd {hd})")
+    return dict(zip(ATTRS, out))

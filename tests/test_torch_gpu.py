@@ -1,6 +1,7 @@
 """The hand-written CUDA kernels against their plain versions on the card:
 flash attention at the shapes of tests/test_torch_kernels.py, in float32
-and bfloat16, and at hd 256 with a window; the WKV-6 and RG-LRU scans at
+and bfloat16, at the bf16 tensor-core kernel's tile edges, and at hd 256
+with a window; the WKV-6 and RG-LRU scans at
 ragged lengths and widths; the relational kernels (splitmix64, sentinel
 gather, segment reductions) bit for bit over every dtype family and edge
 case, and the relational ops on the card against the same ops on the CPU;
@@ -21,7 +22,8 @@ from repro_torch.kernels import ops, ref, take_gather  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
-# bf16: one rounding of the same f32 math; f32: summation order over T
+# bf16: the output's rounding and the bf16 kernel's rounding of P before
+# the P V product, about one bf16 ulp each; f32: summation order over T
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
 
@@ -33,8 +35,7 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,S,T,H,KV,hd,causal,window", [
+FLASH_CASES = [  # (B, S, T, H, KV, hd, causal, window), float32 and bf16
     (1, 128, 128, 2, 2, 32, True, 0),
     (2, 256, 256, 4, 2, 64, True, 0),
     (1, 128, 256, 4, 1, 32, True, 0),
@@ -43,12 +44,41 @@ def cuda():
     (1, 200, 200, 3, 1, 64, True, 0),
     (2, 100, 130, 4, 2, 16, False, 48),
     (1, 96, 96, 2, 1, 128, True, 0),
-])
+]
+# the bf16 tensor-core kernel's tile edges (BQ 64; BK 64, 32 at hd 256),
+# with q_pad: q sliced out of padded heads ("heads", strides stay 16-byte
+# multiples) or a padded head dim ("hd", strides of hd + 4 elements)
+BF16_EDGES = [
+    (2, 100, 130, 4, 2, 64, True, 0, None),        # ragged, S < T
+    (1, 100, 300, 4, 2, 128, True, 0, None),       # ragged, S < T, hd 128
+    (2, 200, 200, 9, 3, 64, True, 0, None),        # G 3
+    (2, 256, 256, 4, 2, 16, True, 0, None),        # hd 16
+    (1, 256, 256, 4, 2, 32, True, 64, None),       # hd 32
+    (1, 160, 160, 4, 1, 128, False, 0, None),      # hd 128
+    (1, 300, 300, 16, 1, 256, True, 0, None),      # hd 256, G 16
+    (2, 77, 150, 16, 1, 256, False, 0, None),      # hd 256 ragged, S < T
+    (1, 1000, 1000, 6, 2, 64, True, 128, None),    # window: first tile > 0
+    (1, 1000, 1000, 16, 1, 256, True, 128, None),
+    (2, 200, 200, 4, 2, 64, True, 0, "heads"),
+    (2, 200, 200, 4, 2, 64, True, 0, "hd"),
+]
+
+
+@pytest.mark.parametrize(
+    "dtype,B,S,T,H,KV,hd,causal,window,q_pad",
+    [(dtype, *c, None) for c in FLASH_CASES
+     for dtype in (torch.float32, torch.bfloat16)]
+    + [(torch.bfloat16, *c) for c in BF16_EDGES])
 def test_kernel_matches_plain(cuda, dtype, B, S, T, H, KV, hd, causal,
-                              window):
+                              window, q_pad):
     g = torch.Generator(device=cuda).manual_seed(S + T + hd)
     q, k, v = (torch.randn(s, generator=g, device=cuda).to(dtype)
                for s in ((B, S, H, hd), (B, T, KV, hd), (B, T, KV, hd)))
+    if q_pad == "heads":
+        q = torch.nn.functional.pad(q, (0, 0, 0, 1))[:, :, :H]
+    elif q_pad == "hd":
+        q = torch.nn.functional.pad(q, (0, 4))[..., :hd]
+    assert q_pad is None or not q.is_contiguous()
     before = ops.launch_counts["flash_attention"]
     out = ops.flash_attention(q, k, v, causal=causal, window=window)
     assert ops.launch_counts["flash_attention"] == before + 1
