@@ -7,10 +7,11 @@
    versions; TF32 off, so float32 products are full float32.
 2. Build: every kernel source of src/repro_torch/kernels/csrc, one nvcc
    each for sm_90a, all started together (each one's set-up time).  The
-   tensor-core instructions (HMMA, HGMMA) of each flash instantiation are
-   counted in the built library (``cuobjdump -sass``): the run fails if a
-   bf16 instantiation has none.  Each instantiation's registers, shared
-   memory, spills and resident blocks per SM, as the card reports them.
+   tensor-core instructions (HMMA, HGMMA) of each flash and wkv6
+   instantiation are counted in the built library (``cuobjdump -sass``):
+   the run fails if a bf16 instantiation has none.  Each instantiation's
+   registers, shared memory, spills and resident blocks per SM, as the
+   card reports them.
 3. Flash attention: held against its plain PyTorch version
    (``ref.attention_ref``) on the same CUDA tensors, at the serving shape
    and at the tile edges (ragged and cross lengths, every head dim, G 3 to
@@ -46,8 +47,12 @@
    device's busy share and the time spent at the kdispatch edge.
 7. Recurrent kernels (WKV-6 and RG-LRU scans) and flash attention at hd
    256 with a 2048-token window: each against its plain PyTorch version on
-   the same CUDA tensors over ragged lengths, widths, head sizes, dtypes,
-   initial states and decays; then timed at the serving shapes of the two
+   the same CUDA tensors over ragged lengths (the edges of the bf16 wkv6
+   kernel's 16-token chunks), widths, head sizes (a wkv6 warp per 16
+   columns of the state), dtypes, initial states, decays (down to 1e-30,
+   where the bf16 kernel's chunks leave the factorised form) and inputs
+   whose base is not 16-byte aligned (staged element by element); then timed
+   at the serving shapes of the two
    models below from CUDA-graph replays, beside the plain version, the
    bound and, for attention, ``scaled_dot_product_attention``.
 8. Serve rwkv6-3b at full width (32 layers, d_model 2560, 40 heads of 64,
@@ -58,8 +63,10 @@
    same weights computing in float32, and once more on the plain path in
    float64, whose gap to the plain float32 logits (the float32 noise
    floor) sets the float32 bound; every wkv6 launch of one more
-   prefill is held to the plain version on its own inputs; in float32, one
-   decode step after S tokens is held against a prefill of S + 1 tokens.
+   prefill is held to the plain version on its own inputs (and, per
+   launch, how many bf16 outputs stand more than one ulp from it is
+   printed); in float32, one decode step after S tokens is held against a
+   prefill of S + 1 tokens.
    A profiled warm round.
 9. Serve recurrentgemma-9b at full width (12 groups of (rec, rec, attn):
    36 sub-blocks, d_model 4096, lru_width 4096, 16 query heads and 1 KV
@@ -118,7 +125,7 @@ from repro_torch.core import kdispatch, vkernels  # noqa: E402
 from repro_torch.core import ops as rops  # noqa: E402
 from repro_torch.core.arrow import Column, Table  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
-    build, flash_attention, ops, ref, relational, take_gather)
+    build, flash_attention, ops, ref, relational, take_gather, wkv6)
 from repro_torch.models import attention  # noqa: E402
 from repro_torch.models.api import ModelAPI  # noqa: E402
 from repro_torch.serve.engine import Request, ServeEngine, pad_prompts  # noqa
@@ -314,12 +321,18 @@ def phase_build() -> dict:
             (build.CSRC / f"{name}.cu").read_bytes()).hexdigest()
         print(f"built {name} (nvcc, sm_90a) and loaded it in {t:.1f} s; "
               f"source sha256 {digest[:16]}")
-    return flash_instantiations()
+    return {"flash_attention": instantiations(
+                "flash_attention", "flash_fwd_bf16_kernel", "hd",
+                flash_attention.SUPPORTED_HD),
+            "wkv6": instantiations("wkv6", "wkv6_chunk_bf16_kernel", "N",
+                                   wkv6.SUPPORTED_N)}
 
 
-def tensor_core_counts(lib) -> dict:
-    """HMMA and HGMMA instructions in each flash kernel of the built
-    library ``lib`` (``cuobjdump -sass``): {"bfloat16 hd 64": n, ...}."""
+def tensor_core_counts(lib, bf16_kernel: str, dim: str) -> dict:
+    """HMMA and HGMMA instructions in each kernel of the built library
+    ``lib`` (``cuobjdump -sass``), by its dtype (``bf16_kernel`` names the
+    bf16 kernel) and its template size ``dim``: {"bfloat16 hd 64": n,
+    ...}."""
     tool = shutil.which("cuobjdump") or os.path.join(
         os.path.dirname(build.nvcc()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
@@ -328,36 +341,33 @@ def tensor_core_counts(lib) -> dict:
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            hd = re.search(r"Li(\d+)EE", m.group(1))
-            kind = "bfloat16" if "flash_fwd_bf16_kernel" in m.group(1) \
-                else "float32"
-            cur = f"{kind} hd {hd.group(1) if hd else '?'}"
+            size = re.search(r"Li(\d+)EE", m.group(1))
+            kind = "bfloat16" if bf16_kernel in m.group(1) else "float32"
+            cur = f"{kind} {dim} {size.group(1) if size else '?'}"
             counts.setdefault(cur, 0)
         elif cur is not None and re.search(r"\b(HMMA|HGMMA)\b", line):
             counts[cur] += 1
     return counts
 
 
-def flash_instantiations() -> dict:
-    """Tensor-core instructions in the built flash library, and what the
-    card reports for each instantiation; fails if a bf16 one has no
-    tensor-core instruction."""
-    counts = tensor_core_counts(build.library_path("flash_attention"))
-    print(f"flash_attention tensor-core instructions (HMMA/HGMMA in SASS): "
-          f"{counts}")
+def instantiations(name: str, bf16_kernel: str, dim: str, sizes) -> dict:
+    """Tensor-core instructions in the built library of ``name``, and
+    what the card reports for each instantiation (``build.kernel_attrs``);
+    fails if a bf16 one has no tensor-core instruction."""
+    counts = tensor_core_counts(build.library_path(name), bf16_kernel, dim)
+    print(f"{name} tensor-core instructions (HMMA/HGMMA in SASS): {counts}")
     insts = []
     for dtype in (torch.bfloat16, torch.float32):
-        for hd in flash_attention.SUPPORTED_HD:
-            name = f"{str(dtype)[6:]} hd {hd}"
-            attrs = flash_attention.kernel_attrs(dtype, hd)
-            n = counts.get(name, 0)
-            insts.append(dict(dtype=str(dtype)[6:], hd=hd,
+        for size in sizes:
+            label = f"{str(dtype)[6:]} {dim} {size}"
+            attrs = build.kernel_attrs(name, dtype == torch.bfloat16, size)
+            n = counts.get(label, 0)
+            insts.append(dict(dtype=str(dtype)[6:], **{dim: size},
                               tensor_core_instructions=n, **attrs))
-            print(f"flash_attention {name}: {n} tensor-core instructions, "
-                  f"{attrs}")
+            print(f"{name} {label}: {n} tensor-core instructions, {attrs}")
             if dtype == torch.bfloat16:
-                check(n > 0, f"flash_attention {name}: no HMMA/HGMMA "
-                      "instruction in the built kernel")
+                check(n > 0, f"{name} {label}: no HMMA/HGMMA instruction in "
+                      "the built kernel")
     return dict(tensor_core_instructions=sum(
         i["tensor_core_instructions"] for i in insts
         if i["dtype"] == "bfloat16"), instantiations=insts)
@@ -506,7 +516,8 @@ def phase_profile(engine, reqs):
 
 # the hand-written kernels a served model launches, as the profiler names them
 OWN_KERNEL_RE = re.compile(r"\b(flash_fwd_kernel|flash_fwd_bf16_kernel"
-                           r"|wkv6_kernel|rglru_scan_kernel)\b")
+                           r"|wkv6_kernel|wkv6_chunk_bf16_kernel"
+                           r"|rglru_scan_kernel)\b")
 
 
 def profile_run(fn, label: str, top: int = 6) -> dict:
@@ -1022,6 +1033,11 @@ WINDOW = 2048
 # the plain einsum in cuBLAS's order) and by fused multiply-adds: ~1e-6
 # relative, 1e-4 as in tests/test_kernels.py; a bf16 output is that value
 # rounded once, so it may differ by one bf16 ulp (2^-8 relative): 2e-2.
+# The bf16 kernel's chunked form (f32 operands in three bf16 parts on the
+# tensor cores) keeps its state within 1.5e-5 of 1 + |S| in the plain
+# twin's worst case, w near 1 over 512 tokens, and rounds no more outputs
+# wrongly than the f32 oracle (tests/test_torch_wkv6_numerics.py): the
+# state stays at 1e-4 in every dtype.
 WKV_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # rglru_scan rounds its product and sum separately, as the plain `a * h +
 # b` does, so it is held bit for bit (tolerance 0).
@@ -1032,18 +1048,36 @@ DECODE_TOL = 5e-3
 
 def wkv_inputs(g, B, S, H, N, dtype, decay):
     """r, k, v, w, u, state on the card: w near the model's floor e^-4
-    (where the decay clip puts it) or near 1 (slow decay, a growing
-    state)."""
+    (where the decay clip puts it), near 1 (slow decay, a growing state),
+    over the model's range, tiny (log-uniform in [1e-30, 1e-3], past what
+    the bf16 kernel's factorised chunk takes) or mixed (the model's range
+    with one token in twenty tiny, so that both forms of a chunk follow
+    each other)."""
     def rnd(*shape, scale=1.0):
         return scale * torch.randn(shape, generator=g, device=CUDA)
     r, k, v = rnd(B, S, H, N, scale=0.5), rnd(B, S, H, N, scale=0.5), \
         rnd(B, S, H, N)
     z = torch.rand(B, S, H, N, generator=g, device=CUDA)
+    tiny = torch.pow(10.0, -30.0 + 27.0 * z)
+    model = np.exp(-4.0) + (1.0 - np.exp(-4.0)) * z
     w = {"floor": np.exp(-4.0) * (1.0 + 0.05 * z),
          "near 1": 1.0 - 1e-3 * z,
-         "model": np.exp(-4.0) + (1.0 - np.exp(-4.0)) * z}[decay]
+         "model": model,
+         "tiny": tiny,
+         "mixed": torch.where(torch.rand(B, S, H, 1, generator=g,
+                                         device=CUDA) < 0.05, tiny,
+                              model)}[decay]
     return (r.to(dtype), k.to(dtype), v.to(dtype), w, rnd(H, N, scale=0.1),
             rnd(B, H, N, N, scale=0.1))
+
+
+def at_offset(x, offset: int):
+    """x's values in a contiguous tensor that starts ``offset`` elements
+    into a flat buffer (x itself at 0)."""
+    if offset == 0:
+        return x
+    buf = torch.empty(x.numel() + offset, dtype=x.dtype, device=x.device)
+    return buf[offset:].view(x.shape).copy_(x)
 
 
 def phase_recurrent_vs_plain() -> dict:
@@ -1052,14 +1086,25 @@ def phase_recurrent_vs_plain() -> dict:
     g = torch.Generator(device=CUDA).manual_seed(7)
     errs = {"wkv6": 0.0, "rglru_scan": 0.0, "flash_hd256": 0.0}
     n = dict.fromkeys(errs, 0)
-    cases = [(dict(B=2, S=S, H=3, N=N), dtype, with_state, decay)
-             for N in (16, 32, 64) for S in (1, 15, 16, 17, 512)
+    # lengths at the edges of a chunk (16 tokens) and inside one, at every
+    # N (1, 2 and 4 warps a block); then r, k, v and w one element into a
+    # flat buffer (offset 1), whose bases are not 16-byte aligned
+    cases = [(dict(B=2, S=S, H=3, N=N), dtype, with_state, decay, 0)
+             for N in (16, 32, 64) for S in (1, 8, 9, 15, 16, 17, 33, 512)
              for dtype in (torch.bfloat16, torch.float32)
-             for with_state in (True, False) for decay in ("floor", "near 1")]
-    cases += [(WKV_SHAPE, torch.bfloat16, True, "model"),
-              (WKV_SHAPE, torch.float32, False, "model")]
-    for shp, dtype, with_state, decay in cases:
+             for with_state in (True, False)
+             for decay in ("floor", "near 1", "tiny", "mixed")]
+    cases += [(dict(B=2, S=S, H=3, N=N), dtype, True, decay, 1)
+              for N in (16, 32, 64) for S in (1, 17, 512)
+              for dtype in (torch.bfloat16, torch.float32)
+              for decay in ("near 1", "mixed")]
+    cases += [(WKV_SHAPE, torch.bfloat16, True, "model", 0),
+              (WKV_SHAPE, torch.float32, False, "model", 0)]
+    for shp, dtype, with_state, decay, offset in cases:
         r, k, v, w, u, st = wkv_inputs(g, dtype=dtype, decay=decay, **shp)
+        r, k, v, w = (at_offset(x, offset) for x in (r, k, v, w))
+        check((r.data_ptr() % 16 == 0) == (offset == 0),
+              "wkv6: the offset case's base is 16-byte aligned")
         st = st if with_state else None
         out, s_out = ops.wkv6(r, k, v, w, u, st)
         want, want_s = ref.wkv6_ref(r, k, v, w, u, st)
@@ -1072,7 +1117,7 @@ def phase_recurrent_vs_plain() -> dict:
               and torch.allclose(s_out, want_s, rtol=1e-4, atol=1e-4))
         err = (out.float() - want.float()).abs().max().item()
         check(ok, f"wkv6 vs wkv6_ref {shp} {dtype} state={with_state} "
-              f"decay={decay}: max_abs_err {err!r}, state "
+              f"decay={decay} offset={offset}: max_abs_err {err!r}, state "
               f"{(s_out - want_s).abs().max().item()!r}")
         errs["wkv6"] = max(errs["wkv6"], err)
         n["wkv6"] += 1
@@ -1145,14 +1190,31 @@ def phase_recurrent_times() -> dict:
                           plain_iters=2)
     nbytes = sum(x.numel() * x.element_size()
                  for x in (r, k, v, w, u, st, r, st))   # out like r, state
-    bound_ms, by = bound(nbytes, 5 * N * N * B * S * H, F32_FLOP_PER_S)
-    res["wkv6"] = dict(ms=statistics.median(kern),
-                       plain_ms=statistics.median(pl), bound_ms=bound_ms,
-                       bound_by=by, library_ms=None)
+    flops = 5 * N * N * B * S * H
+    # the bf16 kernel's products run on the tensor cores; the float32
+    # kernel's on the CUDA cores
+    bound_ms, by = bound(nbytes, flops, BF16_FLOP_PER_S)
+    f32_bound_ms, f32_by = bound(nbytes, flops, F32_FLOP_PER_S)
+    ms = statistics.median(kern)
+    # one batch row: 40 blocks, at most one an SM, so each block runs
+    # alone; and the float32 kernel on the same values in float32
+    one = time_ms(lambda: ops.wkv6(r[:1], k[:1], v[:1], w[:1], u, st[:1]))
+    r32, k32, v32 = (x.float() for x in (r, k, v))
+    f32 = time_ms(lambda: ops.wkv6(r32, k32, v32, w, u, st))
+    res["wkv6"] = dict(ms=ms, plain_ms=statistics.median(pl),
+                       bound_ms=bound_ms, bound_by=by, library_ms=None,
+                       one_row_ms=statistics.median(one),
+                       f32_ms=statistics.median(f32),
+                       f32_bound_ms=f32_bound_ms)
     print(f"wkv6 at {tuple(r.shape)} bf16 (w f32, state f32), ms per call: "
           f"kernel {spread(kern)}, plain {spread(pl)}; bound {bound_ms!r} ms"
-          f" by {by} ({nbytes} bytes, {5 * N * N * B * S * H} f32 flop at "
-          f"{F32_FLOP_PER_S:.3g}/s); no PyTorch call computes it [{smi}]")
+          f" by {by} ({nbytes} bytes, {flops} flop at {BF16_FLOP_PER_S:.3g}"
+          f"/s on the tensor cores), kernel at {bound_ms / ms:.4f} of it; "
+          f"one batch row (B 1, a block an SM) {spread(one)}; the float32 "
+          f"kernel on float32 r, k, v {spread(f32)}, its bound "
+          f"{f32_bound_ms!r} ms by {f32_by} (the same flop at "
+          f"{F32_FLOP_PER_S:.3g}/s on the CUDA cores); no PyTorch call "
+          f"computes it [{smi}]")
 
     B, S, W = (LRU_SHAPE[x] for x in "BSW")
     a = torch.rand(B, S, W, generator=g, device=CUDA)
@@ -1499,7 +1561,7 @@ def each_launch_vs_plain(api, tokens, shape, twins, what: str) -> dict:
     the layers that the logits see.  ``twins``: (name, plain, tolerance by
     output dtype, 0 for bit for bit).  These launches are comparisons and
     come after the main path's counts were read."""
-    errs, n = {}, {}
+    errs, n, ulps = {}, {}, {}
 
     def as_tuple(x):
         return x if isinstance(x, tuple) else (x,)
@@ -1516,6 +1578,9 @@ def each_launch_vs_plain(api, tokens, shape, twins, what: str) -> dict:
                       f"{what}: {name} launch {n.get(name, 0)} vs its plain "
                       f"version: max_abs_err {err!r} (tol {t})")
                 errs[name] = max(errs.get(name, 0.0), err)
+                if o.dtype == torch.bfloat16:
+                    over = int((ulps_from(o, w) > 1).sum())
+                    ulps.setdefault(name, []).append(f"{err:.3g}/{over}")
             n[name] = n.get(name, 0) + 1
             return out
         return call
@@ -1527,7 +1592,20 @@ def each_launch_vs_plain(api, tokens, shape, twins, what: str) -> dict:
     sync()
     print(f"{what}: every launch of a bf16 prefill against its plain version"
           f" on its own inputs: {n} launches, max_abs_err {errs}")
+    for name, per in ulps.items():
+        print(f"{what}: {name}'s bf16 output per launch, max |kernel - "
+              f"plain| / elements more than one bf16 ulp (of the plain "
+              f"value) from it: {' '.join(per)}")
     return errs
+
+
+def ulps_from(got, want):
+    """|got - want| in bf16 ulps of want, element by element (float64): an
+    ulp of x is 2^(floor(log2 |x|) - 7), at least that of the least normal
+    float32."""
+    want = want.double()
+    e = torch.floor(torch.log2(want.abs().clamp_min(2.0 ** -126)))
+    return (got.double() - want).abs() / torch.pow(2.0, e - 7)
 
 
 def decode_vs_prefill(api, tokens, shape, what: str) -> None:
@@ -1652,7 +1730,7 @@ def main() -> int:
               "needs a CUDA card", flush=True)
         return 1
     phase_device()
-    flash_insts = phase_build()
+    insts = phase_build()
     max_err = phase_kernel_vs_plain()
     times = phase_times()
     launches = phase_serve()
@@ -1674,7 +1752,7 @@ def main() -> int:
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:30",
         launches=sum(flash_paths.values()), launches_by_path=flash_paths,
-        max_abs_err=max_err, **times, **flash_insts,
+        max_abs_err=max_err, **times, **insts["flash_attention"],
         hd256=dict(max_abs_err=rec_err["flash_hd256"],
                    serving=rec_times["flash_hd256_serving"],
                    long=rec_times["flash_hd256_long"]))]
@@ -1686,7 +1764,8 @@ def main() -> int:
             name=name, route="cuda",
             source=f"src/repro_torch/kernels/csrc/{name}.cu",
             replaces=line, launches=launched[name],
-            max_abs_err=rec_err[name], **rec_times[name]))
+            max_abs_err=rec_err[name], **rec_times[name],
+            **insts.get(name, {})))
     for name, (src, line) in REL_SOURCES.items():
         t = rel_times[name]
         kernels.append(dict(

@@ -89,3 +89,24 @@ def build_all(names: Sequence[str]) -> Dict[str, float]:
 
     with ThreadPoolExecutor(max(len(names), 1)) as pool:
         return dict(zip(names, pool.map(timed_load, names)))
+
+
+ATTRS = ("registers", "dynamic_smem", "static_smem", "local_bytes",
+         "threads", "blocks_per_sm")
+
+
+def kernel_attrs(name: str, bf16: bool, size: int) -> dict:
+    """What the card reports for the kernel that ``csrc/<name>.cu`` launches
+    for a dtype (bf16 or float32) and a template size (head dim, head
+    size), through its ``<name>_attrs(is_bf16, size, out)`` entry point:
+    registers and local (spill) bytes a thread, dynamic and static shared
+    memory bytes and threads a block, blocks resident on one SM."""
+    fn = getattr(load(name), f"{name}_attrs")
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * len(ATTRS))()
+    err = fn(int(bf16), size, out)
+    if err != 0:
+        raise RuntimeError(f"{name}_attrs failed: cudaError_t {err} "
+                           f"(bf16 {bf16}, size {size})")
+    return dict(zip(ATTRS, out))

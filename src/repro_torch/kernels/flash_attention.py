@@ -53,21 +53,3 @@ def flash_attention_cuda(q, k, v, *, causal: bool, window: int):
             f"(q {tuple(q.shape)}, k {tuple(k.shape)}, {q.dtype})")
     return out
 
-
-ATTRS = ("registers", "dynamic_smem", "static_smem", "local_bytes",
-         "threads", "blocks_per_sm")
-
-
-def kernel_attrs(dtype, hd: int) -> dict:
-    """What the card reports for the kernel that ``dtype`` and ``hd``
-    launch: registers and local (spill) bytes a thread, dynamic and static
-    shared memory bytes and threads a block, blocks resident on one SM."""
-    fn = build.load("flash_attention").flash_attention_attrs
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
-    fn.restype = ctypes.c_int
-    out = (ctypes.c_int * len(ATTRS))()
-    err = fn(int(dtype == torch.bfloat16), hd, out)
-    if err != 0:
-        raise RuntimeError(f"flash_attention_attrs failed: cudaError_t {err}"
-                           f" ({dtype}, hd {hd})")
-    return dict(zip(ATTRS, out))

@@ -2,7 +2,8 @@
 
 ``csrc/wkv6.cu`` replaces the TPU kernel
 ``src/repro/kernels/wkv6.py::_wkv6_kernel``; its header says what bounds
-it on the H100 and how the design answers that.  This module only
+it on the H100 and how the design answers that (bf16 in the chunked form
+on the tensor cores, float32 token by token on FMAs).  This module only
 allocates the outputs, passes pointers, sizes and the current stream
 through ``ctypes`` and raises on a failed launch.  Callers go through
 ``ops.wkv6``, which validates the inputs first.
@@ -49,3 +50,4 @@ def wkv6_cuda(r, k, v, w, u, state):
         raise RuntimeError(f"wkv6 kernel launch failed: cudaError_t {err} "
                            f"(r {tuple(r.shape)}, {r.dtype})")
     return out, s_out
+

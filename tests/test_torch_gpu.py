@@ -101,23 +101,52 @@ def test_kernel_hd256_window_matches_plain(cuda, S, window):
                                atol=2e-2)
 
 
-def wkv_inputs(g, B, S, H, N, dtype, w_lo=0.018):
+def wkv_inputs(g, B, S, H, N, dtype, decay="model"):
+    """w over the model's range [0.018, 1), near 1, tiny (log-uniform in
+    [1e-30, 1e-3], past what the bf16 kernel's factorised chunk takes) or
+    mixed (the model's range with one token in twenty tiny)."""
     r, k = (0.5 * torch.randn(B, S, H, N, generator=g, device="cuda")
             for _ in range(2))
     v = torch.randn(B, S, H, N, generator=g, device="cuda")
-    w = w_lo + (1 - w_lo) * torch.rand(B, S, H, N, generator=g,
-                                       device="cuda")
+    z = torch.rand(B, S, H, N, generator=g, device="cuda")
+    model = 0.018 + (1 - 0.018) * z
+    tiny = torch.pow(10.0, -30.0 + 27.0 * z)
+    if decay == "mixed":
+        pick = torch.rand(B, S, H, 1, generator=g, device="cuda") < 0.05
+        w = torch.where(pick, tiny, model)
+    else:
+        w = {"model": model, "near 1": 1.0 - 1e-3 * z, "tiny": tiny}[decay]
     u = 0.1 * torch.randn(H, N, generator=g, device="cuda")
     st = 0.1 * torch.randn(B, H, N, N, generator=g, device="cuda")
     return r.to(dtype), k.to(dtype), v.to(dtype), w, u, st
 
 
+def at_offset(x, offset):
+    """x's values in a contiguous tensor that starts ``offset`` elements
+    into a flat buffer: at 1 its base is not 16-byte aligned, and the bf16
+    kernel stages it element by element."""
+    if offset == 0:
+        return x
+    buf = torch.empty(x.numel() + offset, dtype=x.dtype, device=x.device)
+    return buf[offset:].view(x.shape).copy_(x)
+
+
+# lengths at the bf16 kernel's chunk edges (16 tokens) and S = 1, at every
+# head size (one block a head, a warp per 16 columns of the state)
+WKV_CASES = [(1, 1, 2, 16), (2, 17, 3, 32), (1, 100, 2, 64), (2, 64, 5, 64),
+             (1, 1, 2, 64), (1, 15, 2, 64), (2, 16, 3, 64), (1, 33, 2, 32),
+             (2, 47, 2, 16)]
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("decay", ["model", "near 1", "tiny", "mixed"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,S,H,N", [(1, 1, 2, 16), (2, 17, 3, 32),
-                                     (1, 100, 2, 64), (2, 64, 5, 64)])
-def test_wkv6_matches_plain(cuda, dtype, B, S, H, N):
+@pytest.mark.parametrize("B,S,H,N", WKV_CASES)
+def test_wkv6_matches_plain(cuda, dtype, B, S, H, N, decay, offset):
     g = torch.Generator(device=cuda).manual_seed(S * N)
-    r, k, v, w, u, st = wkv_inputs(g, B, S, H, N, dtype)
+    r, k, v, w, u, st = wkv_inputs(g, B, S, H, N, dtype, decay)
+    r, k, v, w = (at_offset(x, offset) for x in (r, k, v, w))
+    assert (r.data_ptr() % 16 == 0) == (offset == 0) and r.is_contiguous()
     for state in (st, None):
         before = ops.launch_counts["wkv6"]
         out, s_out = ops.wkv6(r, k, v, w, u, state)
