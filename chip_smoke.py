@@ -11,7 +11,8 @@
    instantiation are counted in the built library (``cuobjdump -sass``):
    the run fails if a bf16 instantiation has none.  Each instantiation's
    registers, shared memory, spills and resident blocks per SM, as the
-   card reports them.
+   card reports them; for every segreduce kernel, what ptxas reported
+   (``-Xptxas -v``: registers, shared memory, spills; a spill fails).
 3. Flash attention: held against its plain PyTorch version
    (``ref.attention_ref``) on the same CUDA tensors, at the serving shape
    and at the tile edges (ragged and cross lengths, every head dim, G 3 to
@@ -31,20 +32,27 @@
 5. Relational kernels (splitmix64 hash and fold, sentinel gather, segment
    reductions): each wrapper against its plain PyTorch version on the
    same CUDA tensors, bit for bit, over every dtype family and edge case;
-   then at the shapes of the star query at TPC-H scale factor 10, the
-   kernel, its plain version and, where one PyTorch call computes the same
-   function, that call, all timed from CUDA-graph replays of the kernel's
-   binding (the validating wrapper syncs once per call, which a graph
-   cannot hold), beside the bound and the copies of one call's arrays
-   between host and card that ``core.kdispatch`` makes at its edge.
+   the segment reductions for every set of count, sum, min and max on
+   every path of segreduce.cu that takes the groups (G on both sides of
+   32 and 255, up to SF10), and an ``order`` that names a row twice, which
+   the few-groups paths must flag; then at the shapes of the star query at
+   TPC-H scale factor 10, the kernel, its plain version and, where one
+   PyTorch call computes the same function, that call, all timed from
+   CUDA-graph replays of the kernel's binding (the validating wrapper
+   syncs once per call, which a graph cannot hold), beside the bound and
+   the copies of one call's arrays between host and card that
+   ``core.kdispatch`` makes at its edge; segreduce on each of its paths,
+   as four one-op calls, and at a many-groups shape (about 1.65 M groups),
+   in turns.
 6. The star query at SF10 through ``repro_torch.core.ops``: 15,000,000
    orders left-joined to 1,500,000 customers and grouped by 25 nations
-   (sum/min/max/count of the amount), and the same through ``filter_join``
-   with an amount filter.  Each runs on ``cuda`` with the launch counts
-   set to 0 just before and read just after, and on the port's ``cpu``
-   device; every output buffer must agree bit for bit, and the group
-   totals must equal a numpy recount.  A profiled cuda run gives the
-   device's busy share and the time spent at the kdispatch edge.
+   (sum/min/max/count of the amount in one segreduce launch), and the
+   same through ``filter_join`` with an amount filter.  Each runs on
+   ``cuda`` with the launch counts set to 0 just before and read just
+   after, and on the port's ``cpu`` device; every output buffer must
+   agree bit for bit, and the group totals must equal a numpy recount.
+   A profiled cuda run gives the device's busy share and the time spent
+   at the kdispatch edge (by call: ``grouped_reduce`` is the group-by's).
 7. Recurrent kernels (WKV-6 and RG-LRU scans) and flash attention at hd
    256 with a 2048-token window: each against its plain PyTorch version on
    the same CUDA tensors over ragged lengths (the edges of the bf16 wkv6
@@ -102,6 +110,7 @@ from __future__ import annotations
 import contextlib
 import cProfile
 import hashlib
+import itertools
 import json
 import os
 import pstats
@@ -325,7 +334,29 @@ def phase_build() -> dict:
                 "flash_attention", "flash_fwd_bf16_kernel", "hd",
                 flash_attention.SUPPORTED_HD),
             "wkv6": instantiations("wkv6", "wkv6_chunk_bf16_kernel", "N",
-                                   wkv6.SUPPORTED_N)}
+                                   wkv6.SUPPORTED_N),
+            "segreduce": dict(ptxas=segreduce_ptxas())}
+
+
+def segreduce_ptxas() -> list:
+    """What ptxas reported for the kernels of segreduce.cu: each one's
+    registers, static shared memory and spills printed, and returned for
+    the 8-byte-value instantiations (the star query's); fails on a
+    spill."""
+    rows = []
+    for k in build.ptxas_usage("segreduce"):
+        name = re.search(r"\d+([a-z_]+_kernel)", k["kernel"]).group(1)
+        args = re.findall(r"L[ib](\d+)E", k["kernel"].split(name, 1)[1])
+        k = dict(k, kernel=f"{name}<{','.join(args)}>")
+        print(f"segreduce ptxas: {k['kernel']}: {k['registers']} registers, "
+              f"{k['smem']} bytes static shared memory, {k['spill_stores']} "
+              f"/ {k['spill_loads']} bytes spill stores / loads, "
+              f"{k['stack']} bytes stack")
+        check(k["spill_stores"] == 0 and k["spill_loads"] == 0,
+              f"segreduce {k['kernel']} spills")
+        if args[:1] == ["8"]:
+            rows.append(k)
+    return rows
 
 
 def tensor_core_counts(lib, bf16_kernel: str, dim: str) -> dict:
@@ -587,7 +618,7 @@ AGGS = {"total": ("amount", "sum"), "lo": ("amount", "min"),
         "hi": ("amount", "max"), "n": ("amount", "count")}
 # launches of each relational kernel in one join + group-by
 PER_QUERY = {"hash_fixed": 2, "combine_hashes": 2, "filter_join_gather": 2,
-             "segreduce": 4}
+             "segreduce": 1}
 REL_SOURCES = {"hash_fixed": ("splitmix64.cu", 132),
                "combine_hashes": ("splitmix64.cu", 157),
                "filter_join_gather": ("sentinel_gather.cu", 231),
@@ -650,18 +681,90 @@ def segments(rng, n, n_groups):
     return vkernels.group_ranges([rng.integers(0, n_groups, n)])
 
 
-def plain_reduce(op, vals, order, starts, valid, out_dtype):
-    acc, counts = ref.segreduce_ref(op, vals, order, starts, valid)
-    if op == "count":
-        return counts, counts
-    if op == "sum":
-        return acc.view(out_dtype), counts
-    return ops._narrow(acc, out_dtype), counts
-
-
+HOWS = ("count", "sum", "min", "max")
+SUBSETS = [h for r in range(1, 5) for h in itertools.combinations(HOWS, r)]
+# the most groups each path of csrc/segreduce.cu takes
+PATH_GROUPS = {"private": relational.PRIVATE_MAX_GROUPS,
+               "runs": float("inf")}
 REDUCERS = {"count": lambda v, o, s, m: ops.grouped_count(o, s, m),
             "sum": ops.grouped_sum, "min": ops.grouped_min,
             "max": ops.grouped_max}
+
+
+def segreduce_vs_plain(err, vals, order, starts, valid, what: str) -> None:
+    """Every op set on every path that takes these groups (through the
+    binding), the fused wrapper and the one-op wrappers, each against
+    ``segreduce_many_ref`` on the same tensors, bit for bit."""
+    n, G = order.numel(), starts.numel()
+    want, counts = ref.segreduce_many_ref(HOWS, vals, order, starts, valid)
+    for path, most in PATH_GROUPS.items():
+        if G > most:
+            continue
+        for hows in SUBSETS:
+            words, cnt, twice = relational.segreduce_cuda(
+                path, hows, None if hows == ("count",) else vals,
+                None if hows == ("count",) and valid is None else order,
+                starts, valid, n)
+            case = f"{what} {path} {'+'.join(hows)}"
+            check(twice is None or twice.item() == 0,
+                  f"{case}: a permutation flagged as none")
+            for h, w in words.items():
+                err("segreduce", w, want[h], case)
+            err("segreduce", cnt, counts, case + " counts")
+    got, got_counts = ops.grouped_reduce(vals, order, starts, valid, HOWS)
+    for h in HOWS[1:]:
+        err("segreduce", got[h], plain_result(h, want[h], vals),
+            f"{what} grouped_reduce {h}")
+    err("segreduce", got_counts, counts, f"{what} grouped_reduce counts")
+    for h, fn in REDUCERS.items():
+        res, c = fn(vals, order, starts, valid)
+        err("segreduce", res, counts if h == "count"
+            else plain_result(h, want[h], vals), f"{what} grouped_{h}")
+        err("segreduce", c, counts, f"{what} grouped_{h} counts")
+
+
+def plain_result(how, words, vals):
+    """The plain version's 64-bit words as the wrappers return them."""
+    if how == "sum":
+        return words.view(torch.uint64) if vals.dtype == torch.uint64 \
+            else words
+    return ops._narrow(words, ops._extreme_dtype(vals))
+
+
+def duplicated_order_raises(rng) -> int:
+    """An ``order`` that names a row twice: the few-groups path flags it,
+    and the wrapper raises ``ValueError`` where it takes that path; the
+    sorted-run pass keeps the reference's result, as the CPU does.
+    Returns the cases checked."""
+    cases = 0
+    for G in (26, 200):
+        order, starts = segments(rng, 100_003, G)
+        order = order.copy()
+        order[5] = order[77_777]
+        vals, order, starts = dev(rng.integers(-99, 99, 100_003)), \
+            dev(order), dev(starts)
+        if G <= PATH_GROUPS["private"]:
+            _, _, twice = relational.segreduce_cuda(
+                "private", HOWS, vals, order, starts, None, 100_003)
+            check(twice.item() == 1, f"G={G} private: not flagged")
+            cases += 1
+        want, counts = ref.segreduce_many_ref(HOWS, vals, order, starts,
+                                              None)
+        path = relational.segreduce_path(G)
+        if path != "runs":
+            try:
+                ops.grouped_reduce(vals, order, starts, None, HOWS)
+                check(False, f"G={G}: a duplicated order did not raise")
+            except ValueError as e:
+                print(f"duplicated order, G={G} ({path}): raised {e}")
+        words, cnt, _ = relational.segreduce_cuda(
+            "runs", HOWS, vals, order, starts, None, 100_003)
+        check(all(torch.equal(words[h], want[h]) for h in HOWS[1:])
+              and torch.equal(cnt, counts),
+              f"G={G}: the sorted-run pass differs from plain on a "
+              "duplicated order")
+        cases += 1
+    return cases
 
 
 def phase_relational_vs_plain() -> dict:
@@ -706,25 +809,31 @@ def phase_relational_vs_plain() -> dict:
     err("filter_join_gather", ops.filter_join_gather(sel, idx),
         ref.sentinel_gather_ref(sel, idx, -1),
         f"filter_join_gather m={N_ORDERS}")
+    # the few-groups paths on both sides of their thresholds (32, 255),
+    # the sorted-run pass past them, and the star query's group-by
+    shapes = ((1, 1), (2048 + 3, 1), (100_003, 32), (100_003, 33),
+              (100_003, 254), (100_003, 255), (100_003, 256),
+              (1_000_003, 26), (3_000_000, 1_500_000))
     for dtype in INTS:
-        for n, n_groups in ((0, 1), (1, 1), (2048 + 3, 1), (1_000_003, 26),
-                            (3_000_000, 1_500_000)):
+        for n, n_groups in shapes + ((N_ORDERS, 26),) * (dtype is np.int64):
             order, starts = segments(rng, n, n_groups)
             if n_groups == 1_500_000:
                 check(len(starts) > 1_200_000, "too few groups drawn")
+            elif n_groups < 1000:
+                check(len(starts) == n_groups, "a group drawn empty")
             vals = dev(fixed_array(rng, n, dtype))
             order, starts = dev(order), dev(starts)
             for valid in (None, dev(rng.random(n) < 0.7)):
-                for op, fn in REDUCERS.items():
-                    got = fn(vals, order, starts, valid)
-                    out_dtype = got[0].dtype
-                    want = plain_reduce(op, vals, order, starts, valid,
-                                        out_dtype) if len(starts) else got
-                    what = (f"grouped_{op} {np.dtype(dtype).name} n={n} "
-                            f"groups={len(starts)} "
-                            f"nulls={valid is not None}")
-                    err("segreduce", got[0], want[0], what)
-                    err("segreduce", got[1], want[1], what + " counts")
+                segreduce_vs_plain(
+                    err, vals, order, starts, valid,
+                    f"{np.dtype(dtype).name} n={n} groups={n_groups} "
+                    f"nulls={valid is not None}")
+    empty = dev(np.empty(0, np.int64))
+    for op, fn in REDUCERS.items():      # no group: nothing to launch
+        res = fn(empty, empty, empty, None)
+        check(res[0].numel() == 0 and res[1].numel() == 0,
+              f"grouped_{op} of no group")
+    cases["segreduce"] += duplicated_order_raises(rng)
     # uint64 and int64 sums that wrap
     for dtype, v, want in ((np.uint64, [2 ** 64 - 1, 2, 2 ** 63, 2 ** 63, 5],
                             [1, 5]),
@@ -732,9 +841,9 @@ def phase_relational_vs_plain() -> dict:
         vals = dev(np.array(v, dtype=dtype))
         order, starts = dev(np.arange(5)), dev(np.array([0, 4]))
         got = ops.grouped_sum(vals, order, starts)[0]
-        err("segreduce", got, plain_reduce("sum", vals, order, starts,
-                                           None, got.dtype)[0],
-            f"{dtype.__name__} wrap")
+        err("segreduce", got, plain_result(
+            "sum", ref.segreduce_ref("sum", vals, order, starts, None)[0],
+            vals), f"{dtype.__name__} wrap")
         check(bits(got).tolist() == want, f"{dtype.__name__} sum {got}")
     sync()
     print(f"relational kernels vs plain versions, bit for bit: {cases} "
@@ -816,47 +925,9 @@ def phase_relational_times() -> dict:
                     for s, i in ((pidx, pi), (bidx, bi))))
     # segreduce: the group-by of the left join: 15M rows, 26 groups
     # (25 nations and the null group of the misses), amount never null
-    codes = np.where(hit, cust % 25, 25)
-    order_np, starts_np = vkernels.group_ranges([codes])
-    amount = rng.integers(0, 1_000_000, N_ORDERS)
-    vals, order, starts = dev(amount), dev(order_np), dev(starts_np)
-    gid = dev(codes)
-    G = len(starts_np)
-    ones = torch.ones(N_ORDERS, dtype=torch.int64, device=CUDA)
-    lo, hi = -(1 << 63), (1 << 63) - 1
-    library = {
-        "count": lambda: torch.zeros(G, dtype=torch.int64, device=CUDA)
-        .index_add_(0, gid, ones),
-        "sum": lambda: torch.zeros(G, dtype=torch.int64, device=CUDA)
-        .index_add_(0, gid, vals),
-        "min": lambda: torch.full((G,), hi, dtype=torch.int64, device=CUDA)
-        .scatter_reduce_(0, gid, vals, "amin"),
-        "max": lambda: torch.full((G,), lo, dtype=torch.int64, device=CUDA)
-        .scatter_reduce_(0, gid, vals, "amax"),
-    }
-    per_op = {}
-    for op in ("count", "sum", "min", "max"):
-        v = None if op == "count" else vals
-        per_op[op] = dict(
-            ms=median_ms(lambda op=op, v=v: relational.segreduce_cuda(
-                op, v, order, starts, None)),
-            plain_ms=median_ms(lambda op=op, v=v: ref.segreduce_ref(
-                op, v, order, starts, None)),
-            library_ms=median_ms(library[op]),
-            # a count with no validity needs only starts (read) and the
-            # counts (written); the other reducers read order, values and
-            # starts and write the results and the counts
-            bytes=(16 * G if v is None
-                   else 16 * N_ORDERS + 24 * G),
-            edge_ms=h2d_d2h_ms(
-                [order_np, starts_np] + ([amount] if v is not None else []),
-                [8 * G] * (1 + (v is not None))))
-        print(f"segreduce {op} at n={N_ORDERS} G={G}: kernel "
-              f"{per_op[op]['ms']!r} ms, plain {per_op[op]['plain_ms']!r} "
-              f"ms, library {per_op[op]['library_ms']!r} ms, edge "
-              f"{per_op[op]['edge_ms']!r} ms")
-    res["segreduce"] = {k: sum(d[k] for d in per_op.values())
-                        for k in per_op["sum"]}
+    res["segreduce"] = segreduce_times(
+        cust, np.where(hit, cust % 25, 25),
+        rng.integers(0, 1_000_000, N_ORDERS))
     smi = smi_line()
     for name, r in res.items():
         r["bound_ms"] = r.pop("bytes") / HBM_BYTES_PER_S * 1e3
@@ -867,6 +938,94 @@ def phase_relational_times() -> dict:
               f"bound {r['bound_ms']!r} ms by bytes, host<->card copies at "
               f"the kdispatch edge {r['edge_ms']!r} ms [{smi}]")
     return res
+
+
+def segreduce_times(cust, codes, amount) -> dict:
+    """The left join's group-by at SF10 (n = 15M, G = 26, int64 amount, no
+    nulls): count, sum, min and max in one call on each path (the wrapper
+    picks ``private``), the same as four one-op calls, the plain version,
+    and four PyTorch calls (``index_add_``, ``scatter_reduce_``); then the
+    many-groups shape (the orders grouped by ``cust``, about 1.65 M
+    groups) on the sorted-run pass, in one call and as four one-op calls;
+    and every path at G = 1, 32 and 33 groups of random rows (the limit
+    of the few-groups path).  The SF10 kernel cells are
+    timed twice each, in turns (forward, then backward), all in this call.
+    Bounds: ``order`` and the values read once, ``starts`` read and four
+    results written once, 16 n + 40 G bytes."""
+    order_np, starts_np = vkernels.group_ranges([codes])
+    m_order_np, m_starts_np = vkernels.group_ranges([cust])
+    vals, order, starts, gid = (dev(a) for a in (amount, order_np, starts_np,
+                                                 codes))
+    m_order, m_starts = dev(m_order_np), dev(m_starts_np)
+    n, G, Gm = N_ORDERS, len(starts_np), len(m_starts_np)
+    path = relational.segreduce_path(G)
+
+    def fused(p, o=order, st=starts):
+        return lambda: relational.segreduce_cuda(p, HOWS, vals, o, st, None,
+                                                 n)
+
+    def one_op(p, o, st):
+        def run():
+            relational.segreduce_cuda(p, ("count",), None, None, st, None, n)
+            for h in HOWS[1:]:
+                relational.segreduce_cuda(p, (h,), vals, o, st, None, n)
+        return run
+    cells = {"private": fused("private"), "runs": fused("runs"),
+             "one_op": one_op(path, order, starts),
+             "many_runs": fused("runs", m_order, m_starts),
+             "many_one_op": one_op("runs", m_order, m_starts)}
+    times = {k: [] for k in cells}
+    for names in (list(cells), list(cells)[::-1]):
+        for k in names:
+            times[k].append(statistics.median(time_ms(cells[k], iters=5,
+                                                      reps=5)))
+    ms = {k: statistics.median(t) for k, t in times.items()}
+    # every path that takes G, across the limit of the few-groups path, at
+    # the same n over G groups of random rows
+    sweep, rng = {}, np.random.default_rng(2)
+    for g in (1, 32, 33):
+        o_np, s_np = vkernels.group_ranges([rng.integers(0, g, n)])
+        o, st = dev(o_np), dev(s_np)
+        sweep[g] = {p: median_ms(fused(p, o, st))
+                    for p, most in PATH_GROUPS.items() if g <= most}
+        print(f"segreduce at n={n} G={g}, count+sum+min+max in one call, "
+              f"ms by path: {sweep[g]}")
+        del o, st
+    lo, hi = -(1 << 63), (1 << 63) - 1
+    ones = torch.ones(n, dtype=torch.int64, device=CUDA)
+    library = (
+        lambda: torch.zeros(G, dtype=torch.int64, device=CUDA)
+        .index_add_(0, gid, ones),
+        lambda: torch.zeros(G, dtype=torch.int64, device=CUDA)
+        .index_add_(0, gid, vals),
+        lambda: torch.full((G,), hi, dtype=torch.int64, device=CUDA)
+        .scatter_reduce_(0, gid, vals, "amin"),
+        lambda: torch.full((G,), lo, dtype=torch.int64, device=CUDA)
+        .scatter_reduce_(0, gid, vals, "amax"))
+    out = dict(
+        ms=ms[path], path=path,
+        plain_ms=median_ms(lambda: ref.segreduce_many_ref(
+            HOWS, vals, order, starts, None)),
+        library_ms=sum(median_ms(f) for f in library),
+        bytes=16 * n + 40 * G,
+        edge_ms=h2d_d2h_ms([order_np, starts_np, amount], [8 * G] * 4),
+        paths={p: ms[p] for p in PATH_GROUPS},
+        paths_by_groups=sweep,
+        one_op_calls_ms=ms["one_op"], runs_of_each_cell=times,
+        many_groups=dict(groups=Gm, runs_ms=ms["many_runs"],
+                         one_op_calls_ms=ms["many_one_op"],
+                         bound_ms=(16 * n + 40 * Gm) / HBM_BYTES_PER_S * 1e3))
+    print(f"segreduce at n={n} G={G}, count+sum+min+max in one call, ms "
+          f"(two turns' medians of 5 replays of 5 calls): private "
+          f"{times['private']}, runs {times['runs']}; four one-op calls "
+          f"({path}) {times['one_op']}; "
+          f"plain {out['plain_ms']!r}; library (4 calls) "
+          f"{out['library_ms']!r}; edge copies {out['edge_ms']!r}")
+    print(f"segreduce at the many-groups shape (n={n}, G={Gm}, the orders "
+          f"grouped by cust): runs {times['many_runs']}, four one-op calls "
+          f"{times['many_one_op']}, bound "
+          f"{out['many_groups']['bound_ms']!r} ms")
+    return out
 
 
 def star_tables(seed: int = 0):
@@ -995,14 +1154,12 @@ def phase_star() -> dict:
         return inner
     with mock.patch.multiple(kdispatch, **{
             k: timed(k, getattr(kdispatch, k))
-            for k in ("hash_fixed", "combine_hashes", "filter_join_gather")}), \
-            mock.patch.dict(kdispatch.GROUPED_REDUCERS, {
-                k: timed(f"grouped_{k}", f)
-                for k, f in kdispatch.GROUPED_REDUCERS.items()}):
+            for k in ("hash_fixed", "combine_hashes", "filter_join_gather",
+                      "grouped_reduce")}):
         host = cProfile.Profile()
         prof = profile_run(lambda: host.runcall(star_left, orders,
                                                 customers),
-                           "the left-join star query on cuda")
+                           "the left-join star query on cuda", top=10)
     edge = sum(spent.values()) * 1e3
     print(f"in that run, kdispatch calls (edge copies, validation, kernels) "
           f"{edge:.1f} ms of {prof.get('wall_ms', float('nan')):.1f} ms wall"
@@ -1773,8 +1930,8 @@ def main() -> int:
             source=f"src/repro_torch/kernels/csrc/{src}",
             replaces=f"src/repro/kernels/relational.py:{line}",
             launches=rel_launches[name], max_abs_err=rel_err[name],
-            ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
-            bound_by=t["bound_by"], library_ms=t["library_ms"]))
+            **{k: v for k, v in t.items() if k != "edge_ms"},
+            **insts.get(name, {})))
     for name, line in GATHER_LINES.items():
         cells = gather_times[name]      # the first cell is the headline
         kernels.append(dict(

@@ -2,12 +2,13 @@
 
 The port's counterpart of the JAX package's ``core/kdispatch.py``.  Key
 hashing, join gathers and the integer segment reducers of ``core/ops.py``
-run through here.  The contract is the reference's: numpy arrays in and
-out, with the same signatures as ``core/vkernels.py``; each call copies
-its arrays to the device, runs the wrapper of ``repro_torch.kernels.ops``
-and copies the result back.  The wrapper launches the hand-written CUDA
-kernel for data on the card and the kernel's plain PyTorch version for
-data on the CPU.
+run through here; ``grouped_reduce`` takes every aggregate of one column
+to the device in one call.  The contract is the reference's: numpy arrays
+in and out, with the same signatures as ``core/vkernels.py``; each call
+copies its arrays to the device, runs the wrapper of
+``repro_torch.kernels.ops`` and copies the result back.  The wrapper
+launches the hand-written CUDA kernel for data on the card and the
+kernel's plain PyTorch version for data on the CPU.
 
 **Device.**  The default device is ``cuda``.  The CPU is taken only on
 request, by ``set_device("cpu")`` or ``with using_device("cpu")``; no
@@ -52,7 +53,7 @@ __all__ = [
     "DEVICES", "REGISTRY", "Eligibility", "set_device", "using_device",
     "device", "eligible", "self_check",
     "hash_fixed", "combine_hashes", "hash_keys", "filter_join_gather",
-    "gather_payload", "GROUPED_REDUCERS",
+    "gather_payload", "grouped_reduce", "GROUPED_REDUCERS",
 ]
 
 DEVICES = ("cuda", "cpu")
@@ -263,63 +264,57 @@ def gather_payload(values: np.ndarray, idx: np.ndarray,
     return _to_numpy(out, values.dtype)
 
 
-def _segment_args(order, starts, valid, dev):
-    return (_index(order, dev), _index(starts, dev),
-            None if valid is None
-            else _to_tensor(np.asarray(valid, dtype=bool), dev))
-
-
 def _extreme_dtype(dt) -> np.dtype:
     return np.dtype(np.uint8) if dt == np.bool_ else np.dtype(dt)
 
 
-def _r_count(values, order, starts, valid=None):
-    counts, _ = kops.grouped_count(
-        *_segment_args(order, starts, valid, device()))
-    counts = _to_numpy(counts, np.int64)
-    return counts, counts
+def grouped_reduce(values: np.ndarray, order: np.ndarray, starts: np.ndarray,
+                   valid, hows: Sequence[str]) -> Dict[str, tuple]:
+    """Every aggregate in ``hows`` of one column: {how: (values, counts)},
+    each pair as ``vkernels.GROUPED_REDUCERS[how]`` returns it.  The
+    aggregates the registry admits (the count, integer and bool sum / min /
+    max) run in one ``kops.grouped_reduce`` call, which copies order,
+    starts, values and valid to the device once (a count alone with no
+    validity mask: starts alone); the ones it refuses (float sum / min /
+    max, mean) go to ``vkernels`` one by one."""
+    hows = list(dict.fromkeys(hows))
+    kern = [h for h in hows if h == "count" or (
+        h in ("sum", "min", "max") and eligible(f"grouped_{h}",
+                                                values.dtype))]
+    out = {h: vkernels.GROUPED_REDUCERS[h](values, order, starts, valid)
+           for h in hows if h not in kern}
+    if kern:
+        dev = device()
+        count_only = kern == ["count"]
+        res, counts = kops.grouped_reduce(
+            None if count_only else _to_tensor(values, dev),
+            None if count_only and valid is None else _index(order, dev),
+            _index(starts, dev),
+            None if valid is None
+            else _to_tensor(np.asarray(valid, dtype=bool), dev),
+            kern, n=len(order))
+        counts = _to_numpy(counts, np.int64)
+        for h in kern:
+            if h == "count":
+                out[h] = (counts, counts)
+                continue
+            dt = _extreme_dtype(values.dtype) if h != "sum" else \
+                np.uint64 if values.dtype == np.uint64 else np.int64
+            out[h] = (_to_numpy(res[h], dt), counts)
+    return {h: out[h] for h in hows}
 
 
-def _r_sum(values, order, starts, valid=None):
-    if not eligible("grouped_sum", values.dtype):
-        return vkernels.grouped_sum(values, order, starts, valid)
-    dev = device()
-    sums, counts = kops.grouped_sum(
-        _to_tensor(values, dev), *_segment_args(order, starts, valid, dev))
-    acc = np.uint64 if values.dtype == np.uint64 else np.int64
-    return _to_numpy(sums, acc), _to_numpy(counts, np.int64)
+def _reducer(how: str):
+    def reduce(values, order, starts, valid=None):
+        return grouped_reduce(values, order, starts, valid, [how])[how]
+    reduce.__name__ = f"grouped_{how}"
+    return reduce
 
 
-def _r_extreme(kernel, values, order, starts, valid):
-    dev = device()
-    vals, counts = kernel(_to_tensor(values, dev),
-                          *_segment_args(order, starts, valid, dev))
-    return (_to_numpy(vals, _extreme_dtype(values.dtype)),
-            _to_numpy(counts, np.int64))
-
-
-def _r_min(values, order, starts, valid=None):
-    if not eligible("grouped_min", values.dtype):
-        return vkernels.grouped_min(values, order, starts, valid)
-    return _r_extreme(kops.grouped_min, values, order, starts, valid)
-
-
-def _r_max(values, order, starts, valid=None):
-    if not eligible("grouped_max", values.dtype):
-        return vkernels.grouped_max(values, order, starts, valid)
-    return _r_extreme(kops.grouped_max, values, order, starts, valid)
-
-
-def _r_mean(values, order, starts, valid=None):
-    # documented ineligible: composes the sequential float sum
-    return vkernels.grouped_mean(values, order, starts, valid)
-
-
-#: drop-in for ``vkernels.GROUPED_REDUCERS`` with per-dtype dispatch
-GROUPED_REDUCERS = {
-    "count": _r_count, "sum": _r_sum, "min": _r_min, "max": _r_max,
-    "mean": _r_mean,
-}
+#: drop-in for ``vkernels.GROUPED_REDUCERS`` with per-dtype dispatch: each
+#: a one-op call of ``grouped_reduce``
+GROUPED_REDUCERS = {how: _reducer(how)
+                    for how in ("count", "sum", "min", "max", "mean")}
 
 
 # --------------------------------------------------------------------------
@@ -379,16 +374,20 @@ def self_check(n: int = 4096, n_groups: int = 97) -> Dict[str, str]:
     check("gather_payload", gather_payload(cols["int64"], pidx, 0),
           np.where(pidx >= 0, cols["int64"][np.where(pidx >= 0, pidx, 0)],
                    0))
-    check("grouped_count", _r_count(cols["int64"], order, starts, valid),
+    red = GROUPED_REDUCERS
+    check("grouped_count", red["count"](cols["int64"], order, starts, valid),
           vkernels.grouped_count(cols["int64"], order, starts, valid))
     for name in ("int32", "int64", "uint64", "bool"):
         v = cols[name]
-        check("grouped_sum:int", _r_sum(v, order, starts, valid),
-              vkernels.grouped_sum(v, order, starts, valid))
-        check("grouped_min:int", _r_min(v, order, starts, valid),
-              vkernels.grouped_min(v, order, starts, valid))
-        check("grouped_max:int", _r_max(v, order, starts, valid),
-              vkernels.grouped_max(v, order, starts, valid))
+        fused = grouped_reduce(v, order, starts, valid,
+                               ["count", "sum", "min", "max"])
+        for how in ("sum", "min", "max"):
+            want = vkernels.GROUPED_REDUCERS[how](v, order, starts, valid)
+            check(f"grouped_{how}:int", red[how](v, order, starts, valid),
+                  want)
+            check(f"grouped_{how}:int", fused[how], want)
+        check("grouped_count", fused["count"],
+              vkernels.grouped_count(v, order, starts, valid))
     for key, e in REGISTRY.items():
         if not e.eligible:
             results[key] = f"ineligible: {e.reason}"

@@ -503,17 +503,26 @@ def group_by(table: Table, keys: Union[str, Sequence[str]],
         c = b.column(k).take(reps)
         fields.append(Field(k, c.type))
         cols.append(c)
-    for out_name, (col_name, how) in aggs.items():
-        reducer = kd.GROUPED_REDUCERS[how]
+    # one dispatch per column computes all of its aggregates
+    hows: Dict[str, List[str]] = {}
+    for col_name, how in aggs.values():
+        hows.setdefault(col_name, []).append(how)
+    reduced = {}
+    for col_name, col_hows in hows.items():
         c = b.column(col_name)
-        if how == "count":
+        on_values = [h for h in col_hows if h != "count"]
+        if not on_values:
             v = np.empty(c.length, dtype=np.int64)    # values unused
         else:
             assert c._kindof() == "prim", \
-                f"{how}({col_name}): non-numeric column"
+                f"{on_values[0]}({col_name}): non-numeric column"
             v = c._logical()
         valid = None if c.validity is None else c.valid_mask()
-        vals, counts = reducer(v, order, starts, valid)
+        reduced[col_name] = (v, kd.grouped_reduce(v, order, starts, valid,
+                                                  col_hows))
+    for out_name, (col_name, how) in aggs.items():
+        v, res = reduced[col_name]
+        vals, counts = res[how]
         if how in ("min", "max") and v.dtype == np.bool_:
             vals = vals.astype(bool)
         validity = None

@@ -5,9 +5,10 @@ with ``nvcc`` for ``sm_90a`` into ``_build/<name>-<hash>.so`` inside this
 package (``.gitignore`` lists it).  The hash is of the source and the
 flags, so an edited source is rebuilt and never served stale.  Nothing is
 built at import: the first ``load(name)`` builds, or ``build_all`` builds
-several sources at once, one ``nvcc`` each.  A failed build raises
-with the compiler's output.  There is no prebuilt fallback: only the
-repository's sources are compiled.
+several sources at once, one ``nvcc`` each.  What ptxas reports of each
+kernel (``-Xptxas -v``) is kept beside the library (``ptxas_usage``).  A
+failed build raises with the compiler's output.  There is no prebuilt
+fallback: only the repository's sources are compiled.
 """
 
 from __future__ import annotations
@@ -15,18 +16,19 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, List, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -64,6 +66,7 @@ def _compile(name: str) -> None:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed to build {name} (exit "
                            f"{proc.returncode}):\n{proc.stdout}")
+    out.with_suffix(".log").write_text(proc.stdout)
     os.replace(tmp, out)    # atomic: others see all or none
 
 
@@ -89,6 +92,31 @@ def build_all(names: Sequence[str]) -> Dict[str, float]:
 
     with ThreadPoolExecutor(max(len(names), 1)) as pool:
         return dict(zip(names, pool.map(timed_load, names)))
+
+
+def ptxas_usage(name: str) -> List[dict]:
+    """What ptxas reported (``-Xptxas -v``) for each kernel of the built
+    ``csrc/<name>.cu``: its mangled name, registers a thread, static
+    shared memory bytes a block, stack frame and spill store and load
+    bytes a thread."""
+    kernels, cur = [], {}
+    log = library_path(name).with_suffix(".log").read_text()
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            cur = {"kernel": m.group(1)}
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and cur:
+            cur.update(zip(("stack", "spill_stores", "spill_loads"),
+                           map(int, m.groups())))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur:
+            smem = re.search(r"(\d+) bytes smem", line)
+            kernels.append(dict(cur, registers=int(m.group(1)),
+                                smem=int(smem.group(1)) if smem else 0))
+            cur = {}
+    return kernels
 
 
 ATTRS = ("registers", "dynamic_smem", "static_smem", "local_bytes",

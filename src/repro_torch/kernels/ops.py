@@ -311,41 +311,70 @@ def gather_payload(values: torch.Tensor, idx: torch.Tensor,
     return _sentinel_gather(values, idx, fill)
 
 
-def _segreduce(op: str, values: Optional[torch.Tensor], order: torch.Tensor,
-               starts: torch.Tensor, valid: Optional[torch.Tensor]
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    _check_1d(f"grouped_{op} order", order, (torch.int64,))
-    _check_1d(f"grouped_{op} starts", starts, (torch.int64,))
-    ts = [order, starts]
-    n, G = order.numel(), starts.numel()
-    if values is not None:
-        _check_1d(f"grouped_{op} values", values, REDUCE_DTYPES)
+#: the aggregates one segreduce launch computes together
+SEGREDUCE_HOWS = ("count", "sum", "min", "max")
+
+
+def _segreduce(hows: Tuple[str, ...], values: Optional[torch.Tensor],
+               order: Optional[torch.Tensor], starts: torch.Tensor,
+               valid: Optional[torch.Tensor], n: Optional[int]
+               ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+    what = f"grouped_reduce {list(hows)}"
+    if not hows or any(h not in SEGREDUCE_HOWS for h in hows):
+        raise ValueError(f"{what}: aggregates of {SEGREDUCE_HOWS} expected")
+    _check_1d(f"{what} starts", starts, (torch.int64,))
+    ts = [starts]
+    if order is None:
+        if hows != ("count",) or valid is not None or n is None:
+            raise ValueError(f"{what}: order may be left out only for a "
+                             "count with no validity mask, with n given")
+    else:
+        _check_1d(f"{what} order", order, (torch.int64,))
+        if n is not None and n != order.numel():
+            raise ValueError(f"{what}: n={n} != {order.numel()} rows")
+        n = order.numel()
+        ts.append(order)
+    if hows != ("count",):
+        if values is None:
+            raise ValueError(f"{what}: values expected")
+        _check_1d(f"{what} values", values, REDUCE_DTYPES)
         ts.append(values)
+    else:
+        values = None
     if valid is not None:
-        _check_1d(f"grouped_{op} valid", valid, (torch.bool,))
+        _check_1d(f"{what} valid", valid, (torch.bool,))
         ts.append(valid)
-    if any(t.numel() != n for t in ts[2:]):
-        raise ValueError(f"grouped_{op}: values/valid of length "
-                         f"{[t.numel() for t in ts[2:]]} != {n} rows")
+    lengths = [t.numel() for t in ts[1 + (order is not None):]]
+    if any(m != n for m in lengths):
+        raise ValueError(f"{what}: values/valid of length {lengths} != {n} "
+                         "rows")
     cuda = _on_cuda(*ts)
+    G = starts.numel()
     if G == 0:
-        return (torch.empty(0, dtype=torch.int64, device=order.device),
-                torch.empty(0, dtype=torch.int64, device=order.device))
+        return ({h: torch.empty(0, dtype=torch.int64, device=starts.device)
+                 for h in hows if h != "count"},
+                torch.empty(0, dtype=torch.int64, device=starts.device))
     # the kernel's memory safety rests on these: one sync for all of them
     bad = n == 0
     if not bad:
-        lo, hi = torch.aminmax(order)
-        bad = (starts[0] != 0) | (starts[-1] >= n) | (lo < 0) | (hi >= n) \
+        bad = (starts[0] != 0) | (starts[-1] >= n) \
             | (starts[1:] <= starts[:-1]).any()
+        if order is not None:
+            lo, hi = torch.aminmax(order)
+            bad = bad | (lo < 0) | (hi >= n)
     if bool(bad):
-        raise ValueError(f"grouped_{op}: starts must begin at 0 and rise "
+        raise ValueError(f"{what}: starts must begin at 0 and rise "
                          f"strictly below n={n}, and order must lie in "
                          f"[0, n)")
     if not cuda:
-        return ref.segreduce_ref(op, values, order, starts, valid)
-    out = relational.segreduce_cuda(op, values, order, starts, valid)
+        return ref.segreduce_many_ref(hows, values, order, starts, valid, n)
+    words, counts, twice = relational.segreduce_cuda(
+        relational.segreduce_path(G), hows, values, order, starts, valid, n)
     launch_counts["segreduce"] += 1
-    return out
+    if twice is not None and bool(twice):
+        raise ValueError(f"{what}: order names a row twice, so it is not a "
+                         f"permutation of [0, {n})")
+    return words, counts
 
 
 def _extreme_dtype(values: torch.Tensor) -> torch.dtype:
@@ -358,12 +387,42 @@ def _narrow(acc: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return acc.to(ref.SIGNED[dtype.itemsize]).view(dtype)
 
 
+def grouped_reduce(values: Optional[torch.Tensor],
+                   order: Optional[torch.Tensor], starts: torch.Tensor,
+                   valid: Optional[torch.Tensor], hows, *,
+                   n: Optional[int] = None
+                   ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+    """Every aggregate in ``hows`` (of count, sum, min, max) of one column
+    over sorted group ranges, in one launch of the segreduce kernel:
+    ({how: result}, counts int64).  Each result is what the one-op wrapper
+    of its name returns (``vkernels.grouped_*``): counts; wrapping sums,
+    int64 or uint64 for uint64 values; extremes in the values' dtype (uint8
+    for bool), the type's max (min) for an all-null group.  On the card the
+    path is picked by the number of groups (``relational.segreduce_path``);
+    on the few-groups path an ``order`` that names a row twice raises
+    ``ValueError`` (the CPU keeps the reference's result).  ``order`` may
+    be None for a count alone with no validity mask, which reads no row;
+    ``n`` then gives the number of rows."""
+    hows = tuple(dict.fromkeys(hows))
+    words, counts = _segreduce(hows, values, order, starts, valid, n)
+    out = {}
+    for h in hows:
+        if h == "count":
+            out[h] = counts
+        elif h == "sum":
+            out[h] = words[h].view(torch.uint64) \
+                if values.dtype == torch.uint64 else words[h]
+        else:
+            out[h] = _narrow(words[h], _extreme_dtype(values))
+    return out, counts
+
+
 def grouped_count(order: torch.Tensor, starts: torch.Tensor,
                   valid: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-group count of non-null rows over sorted group ranges
     (``vkernels.grouped_count``): (counts, counts), int64."""
-    _, counts = _segreduce("count", None, order, starts, valid)
+    _, counts = grouped_reduce(None, order, starts, valid, ("count",))
     return counts, counts
 
 
@@ -373,10 +432,8 @@ def grouped_sum(values: torch.Tensor, order: torch.Tensor,
     """Per-group wrapping sum over non-null rows, integer/bool values
     (``vkernels.grouped_sum``): (sums int64, or uint64 for uint64 values;
     counts int64)."""
-    acc, counts = _segreduce("sum", values, order, starts, valid)
-    if values.dtype == torch.uint64:
-        acc = acc.view(torch.uint64)
-    return acc, counts
+    out, counts = grouped_reduce(values, order, starts, valid, ("sum",))
+    return out["sum"], counts
 
 
 def grouped_min(values: torch.Tensor, order: torch.Tensor,
@@ -385,8 +442,8 @@ def grouped_min(values: torch.Tensor, order: torch.Tensor,
     """Per-group min over non-null rows, integer/bool values, the type's
     max for an all-null group (``vkernels.grouped_min``): (mins in the
     values' dtype, uint8 for bool; counts int64)."""
-    acc, counts = _segreduce("min", values, order, starts, valid)
-    return _narrow(acc, _extreme_dtype(values)), counts
+    out, counts = grouped_reduce(values, order, starts, valid, ("min",))
+    return out["min"], counts
 
 
 def grouped_max(values: torch.Tensor, order: torch.Tensor,
@@ -395,8 +452,8 @@ def grouped_max(values: torch.Tensor, order: torch.Tensor,
     """Per-group max over non-null rows, integer/bool values, the type's
     min for an all-null group (``vkernels.grouped_max``): (maxs in the
     values' dtype, uint8 for bool; counts int64)."""
-    acc, counts = _segreduce("max", values, order, starts, valid)
-    return _narrow(acc, _extreme_dtype(values)), counts
+    out, counts = grouped_reduce(values, order, starts, valid, ("max",))
+    return out["max"], counts
 
 
 # --------------------------------------------------------------------------

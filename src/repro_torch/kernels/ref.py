@@ -206,3 +206,16 @@ def segreduce_ref(op: str, values, order, starts, valid):
     acc = torch.full((G,), sentinel, dtype=torch.int64, device=order.device)
     acc = acc.scatter_reduce(0, seg, v, "amin" if op == "min" else "amax")
     return (acc ^ INT64_MIN if flip else acc), counts
+
+
+def segreduce_many_ref(hows, values, order, starts, valid, n=None):
+    """The plain version of one fused segreduce launch, composed from
+    ``segreduce_ref``: ({how: acc} for each op of ``hows`` but the count,
+    counts).  ``order`` may be None for a count alone with no validity
+    mask, with ``n`` the number of rows."""
+    if order is None:
+        ends = torch.cat([starts[1:], starts.new_full((1,), n)])
+        return {}, ends - starts
+    _, counts = segreduce_ref("count", None, order, starts, valid)
+    return {h: segreduce_ref(h, values, order, starts, valid)[0]
+            for h in hows if h != "count"}, counts

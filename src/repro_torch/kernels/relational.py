@@ -11,7 +11,8 @@ says what bounds it on the H100 and how its design answers that:
   ``filter_join_gather`` and ``gather_payload`` (``_gather_kernel``);
 - ``segreduce.cu``: the segment reductions behind ``grouped_count`` /
   ``grouped_sum`` / ``grouped_min`` / ``grouped_max``
-  (``_segreduce_kernel``).
+  (``_segreduce_kernel``), every requested op of a column in one launch,
+  on a path picked by the number of groups (``segreduce_path``).
 
 This module only allocates outputs, passes pointers, sizes and the current
 stream through ``ctypes`` and raises on a failed launch.  Callers go
@@ -23,13 +24,18 @@ the uint64 bits.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
 from . import build
 
-SEGREDUCE_OPS = {"count": 0, "sum": 1, "min": 2, "max": 3}
+#: the paths of ``csrc/segreduce.cu`` (its C entry's ``path``), and the
+#: bit of each op besides the count (its ``want``)
+SEGREDUCE_PATHS = {"runs": 0, "private": 1}
+SEGREDUCE_WANT = {"sum": 1, "min": 2, "max": 4}
+#: PRIVATE_MAX of ``csrc/segreduce.cu``
+PRIVATE_MAX_GROUPS = 32
 
 _fns = {}
 
@@ -94,23 +100,45 @@ def sentinel_gather_cuda(src: torch.Tensor, idx: torch.Tensor,
     return out
 
 
-def segreduce_cuda(op: str, values: Optional[torch.Tensor],
-                   order: torch.Tensor, starts: torch.Tensor,
-                   valid: Optional[torch.Tensor]
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(acc, counts) of one segment reduction (n >= 1 rows, G >= 1
-    groups): acc is int64 (G,) with the 64-bit result words (uint64 bits
-    for sums and uint64 extremes; unset for count), counts int64 (G,)."""
-    n, G = order.numel(), starts.numel()
-    acc = torch.empty(G, dtype=torch.int64, device=order.device)
-    cnt = torch.empty(G, dtype=torch.int64, device=order.device)
-    signed = values is not None and values.dtype.is_signed
-    err = _bind("segreduce", "segreduce", [I, P, I, I, P, P, P, L, L, P, P,
-                                           P])(
-        SEGREDUCE_OPS[op], None if values is None else values.data_ptr(),
-        1 if values is None else values.element_size(), int(signed),
-        order.data_ptr(), None if valid is None else valid.data_ptr(),
-        starts.data_ptr(), n, G, acc.data_ptr(), cnt.data_ptr(),
-        _stream(order))
-    _raise(err, f"segreduce {op} (n={n}, G={G})")
-    return acc, cnt
+def segreduce_path(G: int) -> str:
+    """The path of ``csrc/segreduce.cu`` that ``ops.grouped_reduce`` takes
+    for G groups: the few-groups path (``private``) up to 32 groups
+    (it keeps 28 bytes a group and thread in shared memory), the sorted-run
+    pass above."""
+    return "private" if G <= PRIVATE_MAX_GROUPS else "runs"
+
+
+def segreduce_cuda(path: str, hows: Sequence[str],
+                   values: Optional[torch.Tensor],
+                   order: Optional[torch.Tensor], starts: torch.Tensor,
+                   valid: Optional[torch.Tensor], n: int
+                   ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor,
+                              Optional[torch.Tensor]]:
+    """One launch of the segment reductions ``hows`` (count, sum, min,
+    max; n >= 1 rows, G >= 1 groups) on ``path`` (``SEGREDUCE_PATHS``):
+    ({how: int64 (G,) result words} for each op but the count, with uint64
+    bits for sums and uint64 extremes; counts int64 (G,); on the
+    few-groups path an int32 (1,) tensor that is 1 if ``order`` named a
+    row twice, else None).  ``order`` and ``values`` may be None where ``hows`` is a
+    count alone (and then ``order`` only without ``valid``)."""
+    G = starts.numel()
+    dev = starts.device
+    ops = [h for h in SEGREDUCE_WANT if h in hows]
+    words = {h: torch.empty(G, dtype=torch.int64, device=dev) for h in ops}
+    cnt = torch.empty(G, dtype=torch.int64, device=dev)
+    few = path == "private" and (ops or valid is not None)
+    scratch = torch.empty(n, dtype=torch.uint8, device=dev) if few else None
+    bad = torch.empty(1, dtype=torch.int32, device=dev) if few else None
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+    err = _bind("segreduce", "segreduce",
+                [I, I, P, I, I, P, P, P, L, L, P, P, P, P, P, P, P])(
+        SEGREDUCE_PATHS[path], sum(SEGREDUCE_WANT[h] for h in ops),
+        ptr(values), 1 if values is None else values.element_size(),
+        int(values is not None and values.dtype.is_signed), ptr(order),
+        ptr(valid), starts.data_ptr(), n, G,
+        *(ptr(words.get(h)) for h in SEGREDUCE_WANT), cnt.data_ptr(),
+        ptr(scratch), ptr(bad), _stream(starts))
+    _raise(err, f"segreduce {list(hows)} on {path} (n={n}, G={G})")
+    return words, cnt, bad

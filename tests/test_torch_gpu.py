@@ -11,6 +11,8 @@ there with
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
+import itertools
+
 import numpy as np
 import pytest
 
@@ -290,11 +292,21 @@ def segments(rng, n, n_groups):
     return vkernels.group_ranges([codes])
 
 
+SEGREDUCE_HOWS = ("count", "sum", "min", "max")
+
+
 @pytest.mark.parametrize("nulls", [False, True])
 @pytest.mark.parametrize("n,n_groups", [(1, 1), (2048 + 3, 1),
-                                        (100_003, 26), (300_000, 150_000)])
+                                        (100_003, 26), (300_000, 150_000),
+                                        (100_003, 32), (100_003, 33),
+                                        (100_003, 254), (100_003, 255),
+                                        (100_003, 256)])
 @pytest.mark.parametrize("dtype", INTS, ids=lambda d: np.dtype(d).name)
 def test_segreduce_matches_plain(cuda, dtype, n, n_groups, nulls):
+    """The one-op wrappers, the fused wrapper for every op set, and every
+    path of segreduce.cu that takes the groups (through the binding),
+    each against the plain version, bit for bit; one launch a call."""
+    from repro_torch.kernels import relational
     rng = np.random.default_rng(n + n_groups)
     order, starts = segments(rng, n, n_groups)
     vals = to_cuda(fixed_array(rng, n, dtype))
@@ -313,6 +325,59 @@ def test_segreduce_matches_plain(cuda, dtype, n, n_groups, nulls):
     counts, _ = ops.grouped_count(order, starts, valid)
     assert_same_bits(counts, ref.segreduce_ref("count", None, order, starts,
                                                valid)[1])
+    words, want_counts = ref.segreduce_many_ref(SEGREDUCE_HOWS, vals, order,
+                                                starts, valid)
+    G = starts.numel()
+    paths = [p for p, most in (("private", relational.PRIVATE_MAX_GROUPS),
+                               ("runs", G)) if G <= most]
+    for r in range(1, 5):
+        for hows in itertools.combinations(SEGREDUCE_HOWS, r):
+            before = ops.launch_counts["segreduce"]
+            got, counts = ops.grouped_reduce(vals, order, starts, valid, hows)
+            assert ops.launch_counts["segreduce"] == before + 1
+            assert_same_bits(counts, want_counts)
+            for h in hows[hows[0] == "count":]:
+                want = words[h].view(got[h].dtype) if h == "sum" \
+                    else ops._narrow(words[h], got[h].dtype)
+                assert_same_bits(got[h], want)
+            for path in paths:
+                w, c, twice = relational.segreduce_cuda(
+                    path, hows, vals, order, starts, valid, n)
+                assert twice is None or twice.item() == 0
+                assert_same_bits(c, want_counts)
+                for h in w:
+                    assert_same_bits(w[h], words[h])
+
+
+@pytest.mark.parametrize("n_groups", [26, 200])
+def test_segreduce_raises_on_a_duplicated_order(cuda, n_groups):
+    """The few-groups path flags an order that names a row twice, and the
+    wrapper raises where it takes that path (G <= 32); the sorted-run pass
+    gives the plain version's result, as the CPU does."""
+    from repro_torch.kernels import relational
+    rng = np.random.default_rng(n_groups)
+    order, starts = segments(rng, 50_000, n_groups)
+    order[3] = order[40_000]
+    vals = to_cuda(rng.integers(-9, 9, 50_000))
+    order, starts = to_cuda(order), to_cuda(starts)
+    if n_groups <= relational.PRIVATE_MAX_GROUPS:
+        _, _, twice = relational.segreduce_cuda(
+            "private", SEGREDUCE_HOWS, vals, order, starts, None, 50_000)
+        assert twice.item() == 1
+    want, want_counts = ref.segreduce_many_ref(SEGREDUCE_HOWS, vals, order,
+                                               starts, None)
+    if relational.segreduce_path(n_groups) != "runs":
+        with pytest.raises(ValueError, match="permutation"):
+            ops.grouped_reduce(vals, order, starts, None, SEGREDUCE_HOWS)
+    else:
+        got, counts = ops.grouped_reduce(vals, order, starts, None,
+                                         SEGREDUCE_HOWS)
+        assert_same_bits(counts, want_counts)
+    words, counts, _ = relational.segreduce_cuda(
+        "runs", SEGREDUCE_HOWS, vals, order, starts, None, 50_000)
+    assert_same_bits(counts, want_counts)
+    for h in words:
+        assert_same_bits(words[h], want[h])
 
 
 def test_segreduce_uint64_sum_wraps(cuda):
