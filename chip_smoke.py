@@ -97,7 +97,32 @@
     refuse an input that requires grad while grad is enabled.  Then four
     cells timed from CUDA-graph replays: kernel, plain version and
     ``torch.index_select``, beside the byte bound.
-11. A JSON line per kernel, then ``{"ok": true, "device": ...}`` as the
+11. The Zerrow core, threads (run right after phase 6, on its tables):
+    both star queries written as plans over zarquet files of the same
+    tables (``repro_torch.core.plan``; the fusion rule rewrites the
+    filtered one onto ``filter_join``), compiled by ``compile_plans`` and
+    run by ``make_executor`` over a RAM store with 4 worker threads.  The
+    launch counts are set to 0 just before each run and read just after;
+    the group-by's buffers must equal phase 6's and the numpy recount.
+    Each query's wall time, the store's copied, de-anonymized and
+    reshared bytes and the bytes ``kdispatch`` moved to and from the card
+    are printed.
+12. The Zerrow core, processes: the left-join query through 2 spawned
+    Flight workers over a file-backed store.  The workers run on
+    ``cuda`` (the parent hands them its device): their kernel launches,
+    echoed in each reply, must equal the thread run's, the parent
+    launches nothing, and the group-by equals phase 6's bit for bit.  A
+    small star before it shows what a worker's first join costs (its CUDA
+    context and the kernels' libraries).
+13. Zerrow prompts: smollm-135m at full width served over
+    ``ZerrowPromptSource`` (4 zarquet shards of 32 prompts, one DAG a
+    shard) in thread and in process mode, batch 8, max_seq 1024, 32 new
+    tokens: every prompt must be its shard text byte-tokenized, every
+    prefill must launch flash attention once per layer, tokens in
+    ``[0, vocab)``; then ``python -m repro_torch.launch.serve
+    --prompt-shards 4 --workers 2 --workers-mode process`` as a user
+    runs it, for 2 rounds.
+14. A JSON line per kernel, then ``{"ok": true, "device": ...}`` as the
     last line.
 
 Every check that fails exits non-zero before the last line is printed.
@@ -119,6 +144,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from unittest import mock
 
@@ -130,14 +156,20 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 from repro_torch.configs import get_arch  # noqa: E402
-from repro_torch.core import kdispatch, vkernels  # noqa: E402
+from repro_torch.core import (  # noqa: E402
+    BufferStore, RMConfig, ResourceManager, kdispatch, make_executor, plan,
+    vkernels, zarquet)
 from repro_torch.core import ops as rops  # noqa: E402
 from repro_torch.core.arrow import Column, Table  # noqa: E402
+from repro_torch.core.plan import compiler as plan_compiler  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
     build, flash_attention, ops, ref, relational, take_gather, wkv6)
 from repro_torch.models import attention  # noqa: E402
 from repro_torch.models.api import ModelAPI  # noqa: E402
-from repro_torch.serve.engine import Request, ServeEngine, pad_prompts  # noqa
+from repro_torch.launch import serve as serve_launcher  # noqa: E402
+from repro_torch.serve.engine import (  # noqa: E402
+    Request, ServeEngine, ZerrowPromptSource, make_prompt_shards,
+    pad_prompts)
 
 # H100 SXM, NVIDIA data sheet (dense, at the full 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -1099,23 +1131,27 @@ def recount(orders, keep):
             "hi": [int(hi[i]) for i in rows], "n": [int(n[i]) for i in rows]}
 
 
-def phase_star() -> dict:
+def star_keeps(orders) -> dict:
+    """The orders each star query keeps, by query name: all of them for
+    the left join; for the filtered inner join, those of 500,000 cents or
+    more whose customer exists."""
+    b = orders.combine().batches[0]
+    amount, cust = b.column("amount").values, b.column("cust").values
+    return {"left join": np.ones(N_ORDERS, bool),
+            "filtered inner join": (amount >= 500_000) & (cust < N_CUST)}
+
+
+def phase_star(orders, customers):
     """Both star queries at SF10 on cuda (counted) and on the port's cpu
     device; bit-identical buffers, expected launches, a numpy recount,
-    and a profiled cuda run with the time spent at the kdispatch edge."""
-    t0 = time.perf_counter()
-    orders, customers = star_tables()
-    print(f"star tables at SF{SF}: orders {orders.num_rows} rows, customers "
-          f"{customers.num_rows} rows, made in "
-          f"{time.perf_counter() - t0:.1f} s")
-    amount = orders.combine().batches[0].column("amount").values
-    cust = orders.combine().batches[0].column("cust").values
+    and a profiled cuda run with the time spent at the kdispatch edge.
+    Returns the launches and each query's group-by output on cuda."""
+    keeps = star_keeps(orders)
     launches = {k: 0 for k in PER_QUERY}
-    walls = {}
-    for name, query, keep in (
-            ("left join", star_left, np.ones(N_ORDERS, bool)),
-            ("filtered inner join", star_filtered,
-             (amount >= 500_000) & (cust < N_CUST))):
+    walls, group_bys = {}, {}
+    for name, query in (("left join", star_left),
+                        ("filtered inner join", star_filtered)):
+        keep = keeps[name]
         sync()
         ops.reset_launch_counts()
         t0 = time.perf_counter()
@@ -1140,7 +1176,8 @@ def phase_star() -> dict:
         for k in launches:
             launches[k] += counts[k]
         walls[name] = (wall_cuda, wall_cpu)
-        del j, g, j_cpu, g_cpu
+        group_bys[name] = g
+        del j, j_cpu, g_cpu
 
     spent = {}
 
@@ -1170,7 +1207,249 @@ def phase_star() -> dict:
     for (path, line, fn), (_, _, own, cum, _) in top:
         print(f"  {own * 1e3:10.1f} ms own {cum * 1e3:10.1f} ms cumulative  "
               f"{os.path.basename(path)}:{line}:{fn}")
+    return launches, group_bys
+
+
+
+# --------------------------------------------------------------------------
+# the star query through the Zerrow core: plans, the DAG executor, Flight
+# --------------------------------------------------------------------------
+
+def star_plans(po: str, pc: str) -> dict:
+    """Phase 6's two star queries as plans over zarquet files of the same
+    tables, by query name."""
+    return {
+        "left join": plan.scan(po).join(plan.scan(pc), on="cust",
+                                        how="left").group_by("country", AGGS),
+        "filtered inner join": plan.scan(po)
+        .filter(plan.col("amount") >= 500_000)
+        .join(plan.scan(pc), on="cust", how="inner")
+        .group_by("country", AGGS)}
+
+
+def zerrow_env(mode: str, workers: int, root: str):
+    """A store, a resource manager and the executor ``mode`` selects, as a
+    user of the core builds them."""
+    store = BufferStore(backing="file" if mode == "process" else "ram",
+                        swap_dir=os.path.join(root, f"swap-{mode}"),
+                        data_dir=os.path.join(root, f"store-{mode}")
+                        if mode == "process" else None)
+    rm = ResourceManager(store, RMConfig(workers=workers,
+                                         workers_mode=mode))
+    return store, make_executor(store, rm, workers=workers)
+
+
+def run_plan(ex, store, name: str, query, want: Table, keep, orders,
+             what: str) -> dict:
+    """Compile one plan, run its DAG with the launch counts and the edge's
+    byte counts set to 0 just before and read just after, and hold its
+    group-by to ``want`` (bit for bit) and to the numpy recount."""
+    cp = plan.compile_plans({name: query})
+    fused = any(getattr(st.spec.fn, "func", None)
+                is plan_compiler.filter_join_exec
+                for st in cp.dag.nodes.values())
+    check(fused == (name != "left join"),
+          f"{what}: filter_join fusion {fused} for {name}")
+    before = store.stats.snapshot()
+    sync()
+    ops.reset_launch_counts()
+    kdispatch.reset_edge_bytes()
+    t0 = time.perf_counter()
+    ex.run([cp.dag])
+    sync()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.launch_counts)
+    edge = dict(kdispatch.edge_bytes)
+    msg = cp.dag.nodes[cp.sinks[name]].output
+    g = cp.read(store, name)
+    same_buffers(g, want, f"{what}, {name}: group-by vs phase 6's")
+    check(g.to_pydict() == recount(orders, keep),
+          f"{what}, {name}: group-by disagrees with the numpy recount")
+    msg.release()
+    after = store.stats.snapshot()
+    stats = {k: after[k] - before[k] for k in
+             ("bytes_copied", "bytes_deanon", "bytes_reshared",
+              "reshare_hits", "bytes_adopted")}
+    print(f"{what}, {name}: {len(cp.dag.nodes)} nodes "
+          f"{sorted(cp.dag.nodes)}; wall {wall * 1e3:.1f} ms; launches "
+          f"{launches}; store {stats}; kdispatch moved {edge['to_device']} "
+          f"bytes to the card and {edge['from_device']} back; group-by "
+          f"bit-identical to phase 6's and to the numpy recount")
+    return dict(wall_s=wall, launches=launches, store=stats, edge=edge)
+
+
+def first_join_cost(ex, store, root: str) -> None:
+    """A small star twice through a fresh pool: the first request pays the
+    worker's CUDA context and the kernels' libraries, the second not."""
+    rng = np.random.default_rng(1)
+    po, pc = os.path.join(root, "small-o.zq"), os.path.join(root,
+                                                            "small-c.zq")
+    zarquet.write_table(po, Table.from_pydict({
+        "cust": rng.integers(0, 1100, 20000),
+        "amount": rng.integers(0, 1_000_000, 20000)}))
+    zarquet.write_table(pc, Table.from_pydict({
+        "cust": np.arange(1000, dtype=np.int64),
+        "country": [NATIONS[i % 25] for i in range(1000)]}))
+    walls = []
+    for _ in range(2):
+        cp = plan.compile_plans({"q": star_plans(po, pc)["left join"]})
+        t0 = time.perf_counter()
+        ex.run([cp.dag])
+        walls.append(time.perf_counter() - t0)
+        cp.dag.nodes[cp.sinks["q"]].output.release()
+    print(f"a small star (20,000 orders) through the fresh pool: first run "
+          f"{walls[0] * 1e3:.1f} ms, second {walls[1] * 1e3:.1f} ms: a "
+          f"worker's first join costs about "
+          f"{(walls[0] - walls[1]) * 1e3:.1f} ms more (its CUDA context "
+          f"and the kernels' libraries)")
+
+
+def phase_zerrow_star(orders, customers, group_bys) -> dict:
+    """Phases 11 and 12: the plan-compiled star queries through the
+    executor's threads, then the left one through 2 Flight workers; each
+    group-by held to phase 6's output.  Returns the launches of each
+    run."""
+    root = tempfile.mkdtemp(prefix="zerrow-star-")
+    keeps = star_keeps(orders)
+    launches = {}
+    try:
+        t0 = time.perf_counter()
+        po, pc = os.path.join(root, "orders.zq"), os.path.join(
+            root, "customers.zq")
+        zarquet.write_table(po, orders)
+        zarquet.write_table(pc, customers)
+        print(f"zerrow: orders and customers written to zarquet "
+              f"({os.path.getsize(po)} and {os.path.getsize(pc)} bytes) in "
+              f"{time.perf_counter() - t0:.1f} s")
+        plans = star_plans(po, pc)
+        # a compiled query is the hand-driven one of phase 6 as DAG nodes:
+        # projection pruning drops no key and no aggregated column, so
+        # each query launches what PER_QUERY says, as in phase 6
+        want = dict(dict.fromkeys(ops.launch_counts, 0), **PER_QUERY)
+        store, ex = zerrow_env("thread", 4, root)
+        try:
+            for name, query in plans.items():
+                r = run_plan(ex, store, name, query, group_bys[name],
+                             keeps[name], orders, "zerrow threads")
+                check(r["launches"] == want,
+                      f"zerrow threads, {name}: launches {r['launches']} "
+                      f"!= {want}")
+                launches[f"threads, {name}"] = r["launches"]
+        finally:
+            ex.close()
+            store.close()
+
+        store, ex = zerrow_env("process", 2, root)
+        try:
+            t0 = time.perf_counter()
+            pool = ex._ensure_pool()
+            print(f"zerrow processes: {pool.live_workers} Flight workers "
+                  f"on {pool.device} spawned and warmed in "
+                  f"{time.perf_counter() - t0:.1f} s")
+            check(pool.device == "cuda", f"workers on {pool.device}")
+            first_join_cost(ex, store, root)
+            ex.worker_stats.clear()
+            chains, nodes, sock = (ex.chains_shipped, ex.chain_nodes_shipped,
+                                   ex.socket_bytes)
+            name = "left join"
+            r = run_plan(ex, store, name, plans[name], group_bys[name],
+                         keeps[name], orders, "zerrow processes")
+            worker = {k.split(":", 1)[1]: v for k, v in
+                      ex.worker_stats.items() if k.startswith("launches:")}
+            worker = dict(dict.fromkeys(ops.launch_counts, 0), **worker)
+            print(f"zerrow processes: the workers launched {worker}; "
+                  f"{ex.chains_shipped - chains} chains shipped "
+                  f"({ex.chain_nodes_shipped - nodes} nodes), socket bytes "
+                  f"{ex.socket_bytes - sock}, worker store counters "
+                  f"{ {k: v for k, v in ex.worker_stats.items() if ':' not in k} }")
+            check(r["launches"] == dict.fromkeys(ops.launch_counts, 0),
+                  f"zerrow processes: the parent launched {r['launches']}")
+            check(worker == want,
+                  f"zerrow processes: the workers launched {worker} != "
+                  f"{want} (a worker on the CPU launches nothing)")
+            check(ex.fallback_inline == 0 and ex.worker_retries == 0,
+                  f"zerrow processes: {ex.fallback_inline} nodes inline, "
+                  f"{ex.worker_retries} retries")
+            launches[f"processes, {name}"] = worker
+        finally:
+            ex.close()
+            store.close()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     return launches
+
+
+def phase_zerrow_prompts() -> dict:
+    """Phase 13: smollm-135m served over ZerrowPromptSource in thread and
+    in process mode, then the launcher as a user runs it."""
+    cfg, api = build_model("smollm-135m")
+    batch, max_seq, max_new = 8, 1024, 32
+    root = tempfile.mkdtemp(prefix="zerrow-prompts-")
+    flash = {}
+    try:
+        shards = make_prompt_shards(root, 4, 32)
+        texts = [t for p in shards
+                 for t in zarquet.read_table(p).to_pydict()["text"]]
+        want = [(np.frombuffer(t.encode(), np.uint8).astype(np.int32)
+                 + 1)[:max_seq // 2] for t in texts]
+        for mode in ("thread", "process"):
+            src = ZerrowPromptSource(shards, batch=batch, max_new=max_new,
+                                     workers=2, workers_mode=mode,
+                                     max_prompt_len=max_seq // 2)
+            engine = ServeEngine(api, batch=batch, max_seq=max_seq)
+            served, outs = [], []
+            sync()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            try:
+                for reqs in src.batches():
+                    outs.append(engine.run_batch(reqs))
+                    served.extend(r.prompt for r in reqs)
+            finally:
+                src.close()
+            sync()
+            wall = time.perf_counter() - t0
+            launches = dict(ops.launch_counts)
+            s = engine.stats
+            print(f"zerrow prompts, {mode} mode: {len(served)} prompts from "
+                  f"{len(shards)} shards in {len(outs)} batches, served in "
+                  f"{wall:.2f} s (prefill {s['prefill_s'] * 1e3:.1f} ms, "
+                  f"decode {s['decode_steps']} steps "
+                  f"{s['decode_s'] * 1e3:.1f} ms); launches {launches}")
+            check(len(served) == len(want) and all(
+                np.array_equal(a, b) for a, b in zip(served, want)),
+                f"zerrow prompts, {mode}: prompts differ from the "
+                "byte-tokenized shard texts")
+            check(launches == dict(dict.fromkeys(ops.launch_counts, 0),
+                                   flash_attention=cfg.n_layers * len(outs)),
+                  f"zerrow prompts, {mode}: launches {launches} != "
+                  f"{cfg.n_layers} flash a prefill x {len(outs)}")
+            check_tokens(outs, len(served) * max_new, cfg.vocab,
+                         f"zerrow prompts, {mode}")
+            flash[f"zerrow prompts, {mode}"] = launches["flash_attention"]
+        del api
+        torch.cuda.empty_cache()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        engine = serve_launcher.main([
+            "--arch", "smollm-135m", "--batch", str(batch), "--max-seq",
+            str(max_seq), "--max-new", str(max_new), "--prompt-shards", "4",
+            "--prompts-per-shard", "32", "--workers", "2",
+            "--workers-mode", "process", "--rounds", "2"])
+        sync()
+        launches = dict(ops.launch_counts)
+        print(f"launcher with --prompt-shards 4 --workers 2 --workers-mode "
+              f"process: {time.perf_counter() - t0:.1f} s; launches "
+              f"{launches}")
+        check(engine.stats["decode_steps"] == 2 * max_new
+              and launches["flash_attention"] == 2 * cfg.n_layers,
+              f"launcher: {engine.stats}, launches {launches}")
+        flash["launcher, prompt shards"] = launches["flash_attention"]
+        del engine
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return flash
 
 
 # --------------------------------------------------------------------------
@@ -1893,7 +2172,15 @@ def main() -> int:
     launches = phase_serve()
     rel_err = phase_relational_vs_plain()
     rel_times = phase_relational_times()
-    rel_launches = phase_star()
+    t0 = time.perf_counter()
+    orders, customers = star_tables()
+    print(f"star tables at SF{SF}: orders {orders.num_rows} rows, customers "
+          f"{customers.num_rows} rows, made in "
+          f"{time.perf_counter() - t0:.1f} s")
+    rel_launches, group_bys = phase_star(orders, customers)
+    zerrow_launches = phase_zerrow_star(orders, customers, group_bys)
+    del orders, customers, group_bys
+    prompt_flash = phase_zerrow_prompts()
     rec_err = phase_recurrent_vs_plain()
     rec_times = phase_recurrent_times()
     gather_err, gather_launches = phase_gather_vs_plain()
@@ -1903,7 +2190,8 @@ def main() -> int:
     rgemma_launches = phase_serve_rgemma()
     print(f"device: {smi_line()}")
     flash_paths = {"smollm-135m": launches["flash_attention"],
-                   "recurrentgemma-9b": rgemma_launches["flash_attention"]}
+                   "recurrentgemma-9b": rgemma_launches["flash_attention"],
+                   **prompt_flash}
     kernels = [dict(
         name="flash_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -1925,11 +2213,15 @@ def main() -> int:
             **insts.get(name, {})))
     for name, (src, line) in REL_SOURCES.items():
         t = rel_times[name]
+        paths = {"star": rel_launches[name],
+                 **{f"zerrow {k}": v[name]
+                    for k, v in zerrow_launches.items()}}
         kernels.append(dict(
             name=name, route="cuda",
             source=f"src/repro_torch/kernels/csrc/{src}",
             replaces=f"src/repro/kernels/relational.py:{line}",
-            launches=rel_launches[name], max_abs_err=rel_err[name],
+            launches=sum(paths.values()), launches_by_path=paths,
+            max_abs_err=rel_err[name],
             **{k: v for k, v in t.items() if k != "edge_ms"},
             **insts.get(name, {})))
     for name, line in GATHER_LINES.items():

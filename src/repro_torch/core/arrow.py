@@ -13,10 +13,8 @@ pyarrow, a utf8 array here is allowed to have offsets that do not start at
 zero: a row-slice is then pure views (offsets sub-view + the *same* values
 buffer), which is what makes slice resharing free (paper Fig 6).
 
-The port's own copy of the JAX package's ``core/arrow.py``.  The port has
-no buffer store yet, so buffers are always numpy arrays: the lazy-mapping
-(``LazyBuf``) branches of ``values``/``offsets``/``validity``,
-``Column.utf8`` and ``Column.slice`` are left out until it arrives.
+The port's own copy of the JAX package's ``core/arrow.py``; the code is
+the same, only this docstring differs.
 """
 
 from __future__ import annotations
@@ -115,7 +113,10 @@ def unpack_validity(bitmap: np.ndarray, length: int) -> np.ndarray:
 class Column:
     """One Arrow array: type + buffers (+ optional dictionary column).
 
-    Buffers are numpy arrays.
+    Buffers may be numpy arrays or unforced ``LazyBuf`` mappings (the
+    mmap-fault analogue); accessing ``.values``/``.offsets``/``.validity``
+    forces them.  ``raw_*`` accessors expose the unforced handles so SIPC
+    can reshare pass-through buffers without touching the data.
     """
 
     __slots__ = ("type", "length", "_validity", "_values", "_offsets",
@@ -133,17 +134,26 @@ class Column:
         self._validity = validity     # packed bitmap or None (= all valid)
         self.dictionary = dictionary  # dict only
 
-    # -- buffer access --------------------------------------------------------
+    # -- buffer access (forces lazy mappings) --------------------------------
     @property
     def values(self) -> np.ndarray:
+        from .buffers import LazyBuf
+        if isinstance(self._values, LazyBuf):
+            self._values = self._values.force()
         return self._values
 
     @property
     def offsets(self) -> Optional[np.ndarray]:
+        from .buffers import LazyBuf
+        if isinstance(self._offsets, LazyBuf):
+            self._offsets = self._offsets.force()
         return self._offsets
 
     @property
     def validity(self) -> Optional[np.ndarray]:
+        from .buffers import LazyBuf
+        if isinstance(self._validity, LazyBuf):
+            self._validity = self._validity.force()
         return self._validity
 
     # -- constructors -------------------------------------------------------
@@ -156,8 +166,11 @@ class Column:
 
     @staticmethod
     def utf8(offsets, values, validity=None) -> "Column":
-        assert offsets.dtype == np.int64
-        n = len(offsets) - 1
+        if isinstance(offsets, np.ndarray):
+            assert offsets.dtype == np.int64
+            n = len(offsets) - 1
+        else:
+            n = offsets.length // 8 - 1
         return Column(UTF8, n, values, offsets=offsets, validity=validity)
 
     @staticmethod
@@ -178,9 +191,9 @@ class Column:
         return Column(dict_of(dictionary.type), len(codes), codes,
                       validity=validity, dictionary=dictionary)
 
-    # -- buffer enumeration (for SIPC) ---------------------------------------
+    # -- buffer enumeration (for SIPC; returns raw, possibly-lazy handles) ---
     def buffers(self) -> List[tuple]:
-        """[(buffer_name, ndarray)] in IPC order."""
+        """[(buffer_name, ndarray-or-LazyBuf)] in IPC order, unforced."""
         out = []
         if self._validity is not None:
             out.append(("validity", self._validity))
@@ -227,19 +240,29 @@ class Column:
         new_off, out = vkernels.take_var(d.offsets, d.values, self.values)
         return Column.utf8(new_off, out, self.validity)
 
-    # -- slicing (pure views; the reshare-friendly path) ---------------------
+    # -- slicing (pure views / lazy subranges; the reshare-friendly path) ---
     def slice(self, start: int, stop: int) -> "Column":
+        from .buffers import LazyBuf
         start = max(0, min(start, self.length))
         stop = max(start, min(stop, self.length))
         validity = None
         if self._validity is not None:
             validity = pack_validity(self.valid_mask()[start:stop])
         if self.type.is_utf8:
-            # offsets sub-view + the SAME values buffer
+            # offsets sub-view + the SAME (possibly unfaulted) values buffer
+            if isinstance(self._offsets, LazyBuf):
+                offs = self._offsets.subrange(start * 8,
+                                              (stop - start + 1) * 8, "int64")
+            else:
+                offs = self._offsets[start:stop + 1]
             return Column(UTF8, stop - start, self._values,
-                          offsets=self._offsets[start:stop + 1],
-                          validity=validity)
-        vals = self._values[start:stop]
+                          offsets=offs, validity=validity)
+        isz = np.dtype(self.type.np_dtype).itemsize
+        if isinstance(self._values, LazyBuf):
+            vals = self._values.subrange(start * isz, (stop - start) * isz,
+                                         self.type.np_dtype)
+        else:
+            vals = self._values[start:stop]
         return Column(self.type, stop - start, vals,
                       validity=validity, dictionary=self.dictionary)
 

@@ -30,6 +30,18 @@ over -0.0/NaN) that a block-parallel reduction cannot reproduce
 bit-for-bit.  Var-length ``(offsets, values)`` keys of ``hash_keys`` go to
 ``vkernels`` structurally, as in the reference.
 
+**The edge.**  A read-only array (every de-anonymized or store-mapped
+column of the core is one) crosses to the device with no host copy:
+``torch.from_numpy`` shares its memory, and the tensor is only read (no
+plain version writes to its inputs).  ``edge_bytes`` counts the bytes
+copied to and from the card.
+
+**Fingerprints.**  ``fp_includes_join`` / ``fp_includes_group_by`` are the
+``__fp_includes__`` of the relational ops: the numpy vkernels and the
+device tag always, and on ``cuda`` the sha256 of every CUDA source the op
+launches, so a device flip or a kernel edit invalidates exactly the join
+and group-by cones of a cached DAG.
+
 **No demotion.**  ``self_check()`` re-runs a compact differential on the
 current device and raises on the first kernel whose bits diverge, naming
 it.  Nothing is demoted at runtime.
@@ -38,20 +50,25 @@ it.  Nothing is demoted at runtime.
 from __future__ import annotations
 
 import contextlib
+import functools
+import threading
+import warnings
 from dataclasses import dataclass
-from typing import Dict, Iterator, Sequence
+from typing import Dict, Iterator, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from .. import resolve_device
+from ..kernels import build
 from ..kernels import ops as kops
 from ..kernels import ref
 from . import vkernels
 
 __all__ = [
     "DEVICES", "REGISTRY", "Eligibility", "set_device", "using_device",
-    "device", "eligible", "self_check",
+    "device", "device_name", "eligible", "self_check", "edge_bytes",
+    "reset_edge_bytes", "fp_includes_join", "fp_includes_group_by",
     "hash_fixed", "combine_hashes", "hash_keys", "filter_join_gather",
     "gather_payload", "grouped_reduce", "GROUPED_REDUCERS",
 ]
@@ -90,6 +107,14 @@ def device() -> torch.device:
     """The device calls run on; raises ``RuntimeError`` when it is
     ``cuda`` and no card is present."""
     return resolve_device(_device)
+
+
+def device_name() -> str:
+    """The device asked for (``cuda`` or ``cpu``), without resolving it:
+    what a spawned Flight worker is handed, so that it runs where its
+    parent asked and raises at its first dispatch where that is ``cuda``
+    and it sees no card."""
+    return _device
 
 
 # --------------------------------------------------------------------------
@@ -171,6 +196,34 @@ def eligible(kernel: str, dtype=None) -> bool:
 _UNSIGNED = {2: torch.uint16, 4: torch.uint32, 8: torch.uint64}
 
 
+#: bytes copied host -> card and card -> host at this edge
+edge_bytes: Dict[str, int] = {"to_device": 0, "from_device": 0}
+_edge_lock = threading.Lock()
+
+
+def reset_edge_bytes() -> None:
+    with _edge_lock:
+        for k in edge_bytes:
+            edge_bytes[k] = 0
+
+
+def _moved(key: str, t: torch.Tensor) -> None:
+    if t.device.type == "cuda":
+        with _edge_lock:
+            edge_bytes[key] += t.numel() * t.element_size()
+
+
+def _from_numpy(a: np.ndarray) -> torch.Tensor:
+    """A CPU tensor sharing ``a``'s memory.  A read-only ``a`` is shared
+    too, with no copy: torch warns that the tensor could write to it, and
+    none of the tensors made here is ever written."""
+    if a.flags.writeable:
+        return torch.from_numpy(a)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        return torch.from_numpy(a)
+
+
 def _to_tensor(a: np.ndarray, dev: torch.device) -> torch.Tensor:
     """``a`` on ``dev`` (a copy on the card, shared memory on the CPU) with
     the same dtype and bits.  Unsigned arrays wider than a byte cross as a
@@ -179,17 +232,19 @@ def _to_tensor(a: np.ndarray, dev: torch.device) -> torch.Tensor:
     a = np.ascontiguousarray(a)
     if a.dtype.kind not in "biuf":
         raise TypeError(f"no relational kernel takes dtype {a.dtype}")
-    if not a.flags.writeable:      # torch.from_numpy wants a writable array
-        a = a.copy()
     if a.dtype.kind == "u" and a.dtype.itemsize > 1:
-        return torch.from_numpy(a.view(f"i{a.dtype.itemsize}")).to(dev) \
+        t = _from_numpy(a.view(f"i{a.dtype.itemsize}")).to(dev) \
             .view(_UNSIGNED[a.dtype.itemsize])
-    return torch.from_numpy(a).to(dev)
+    else:
+        t = _from_numpy(a).to(dev)
+    _moved("to_device", t)
+    return t
 
 
 def _to_numpy(t: torch.Tensor, dtype) -> np.ndarray:
     """The tensor's bits, on the host, as a numpy array of ``dtype`` (of
     the tensor's element width)."""
+    _moved("from_device", t)
     if t.dtype in _UNSIGNED.values():
         t = t.view(ref.SIGNED[t.element_size()])
     return t.cpu().numpy().view(dtype)
@@ -229,9 +284,11 @@ def _combine(cols: np.ndarray, mix_first: bool) -> np.ndarray:
 
 
 def _stack(cols: Sequence[np.ndarray], n: int) -> np.ndarray:
+    """The (ncols, n) matrix the fold takes: a view of a single column (a
+    one-key join copies nothing here), a stacked copy of several."""
     if not cols:
         return np.empty((0, n), dtype=np.uint64)
-    out = np.stack(cols)
+    out = cols[0].reshape(1, -1) if len(cols) == 1 else np.stack(cols)
     if out.shape[1] != n:
         raise ValueError(f"key columns of {out.shape[1]} rows for n={n}")
     return out
@@ -315,6 +372,57 @@ def _reducer(how: str):
 #: a one-op call of ``grouped_reduce``
 GROUPED_REDUCERS = {how: _reducer(how)
                     for how in ("count", "sum", "min", "max", "mean")}
+
+
+# --------------------------------------------------------------------------
+# fingerprint integration: callable __fp_includes__ for the relational ops
+# --------------------------------------------------------------------------
+
+def _device_tag(name: str, sources: Tuple[Tuple[str, str], ...]) -> None:
+    """Inert marker folded into op fingerprints via
+    ``functools.partial(_device_tag, <device>, <sources>)``: the partial's
+    arguments make each device, and each version of the CUDA sources,
+    give distinct cone fingerprints."""
+
+
+#: the CUDA sources each op launches (``kernels/csrc/<name>.cu``)
+_JOIN_SOURCES = ("splitmix64", "sentinel_gather")
+_GROUP_BY_SOURCES = ("segreduce",)
+
+
+#: one tag object per (device, sources): the fingerprint walk marks an
+#: object it meets twice by its ``id``, so a tag made anew on each call
+#: could reuse the address of one already freed and be taken for it
+_TAGS: Dict[tuple, functools.partial] = {}
+
+
+def _tag(sources: Sequence[str]):
+    hashes = tuple((s, build.source_sha256(s)) for s in sources) \
+        if _device == "cuda" else ()
+    return _TAGS.setdefault((_device, hashes), functools.partial(
+        _device_tag, _device, hashes))
+
+
+_JOIN_NUMPY = (vkernels.combine_hashes, vkernels.hash_fixed,
+               vkernels.hash_var, vkernels.hash_join_probe,
+               vkernels.filter_join_gather, vkernels.bytes_rows_equal)
+_GROUP_BY_NUMPY = (vkernels.group_ranges, vkernels.grouped_count,
+                   vkernels.grouped_sum, vkernels.grouped_min,
+                   vkernels.grouped_max, vkernels.grouped_mean,
+                   vkernels.dict_encode_var, vkernels.sort_keys_var)
+
+
+def fp_includes_join():
+    """Kernel deps of the join/filter_join ops, evaluated at fingerprint
+    time: the numpy vkernels and the device tag, which on ``cuda`` holds
+    the sha256 of ``splitmix64.cu`` and ``sentinel_gather.cu``."""
+    return _JOIN_NUMPY + (_tag(_JOIN_SOURCES),)
+
+
+def fp_includes_group_by():
+    """Kernel deps of the group_by op (see ``fp_includes_join``): on
+    ``cuda`` the sha256 of ``segreduce.cu``."""
+    return _GROUP_BY_NUMPY + (_tag(_GROUP_BY_SOURCES),)
 
 
 # --------------------------------------------------------------------------

@@ -55,8 +55,7 @@ hand-wired one exercise the identical op (and fingerprint) surface.
 The port's own copy of the JAX package's ``core/ops.py``.  Its relational
 ops reach the hand-written CUDA kernels through the port's
 ``kdispatch``, on the card unless ``kdispatch.set_device("cpu")`` asks
-for the CPU.  The ``__fp_includes__`` declarations of the reference wait
-for the port's copy of the executor and its fingerprints.
+for the CPU.
 """
 
 from __future__ import annotations
@@ -555,6 +554,24 @@ def filter_join_node(tables: Sequence[Table], on, how: str = "inner",
                        left_mask=left_mask, right_mask=right_mask)
 
 
+#: the relational ops reach their kernels through module attributes,
+#: which the fingerprint's direct-global scan does not chase; declaring
+#: them here makes a kernel edit invalidate every cached join/group-by
+#: output (differential reruns recompute the affected side).  The
+#: declarations are *callables* resolved at fingerprint time by
+#: ``kdispatch``: they always fold in the numpy vkernels and the device
+#: tag, and on ``cuda`` also the sha256 of every CUDA source the op
+#: launches — so flipping the device or editing a kernel source
+#: invalidates exactly these cones too
+join.__fp_includes__ = kd.fp_includes_join
+group_by.__fp_includes__ = kd.fp_includes_group_by
+join_node.__fp_includes__ = join.__fp_includes__
+group_by_node.__fp_includes__ = group_by.__fp_includes__
+#: fused and unfused plans fingerprint distinctly: filter_join's own code
+#: object differs from join's, and both fold in filter_join_gather so a
+#: fusion-kernel edit invalidates fused *and* unfused cached outputs
+filter_join.__fp_includes__ = join.__fp_includes__
+filter_join_node.__fp_includes__ = join.__fp_includes__
 
 
 # --------------------------------------------------------------------------

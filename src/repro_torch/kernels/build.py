@@ -42,11 +42,22 @@ def nvcc() -> str:
     return path
 
 
-def library_path(name: str) -> Path:
+def _source(name: str) -> bytes:
     src = CSRC / f"{name}.cu"
     if not src.exists():
         raise FileNotFoundError(f"no kernel source {src}")
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return src.read_bytes()
+
+
+def source_sha256(name: str) -> str:
+    """sha256 of ``csrc/<name>.cu`` as it stands (the core's fingerprints
+    fold it in, so an edited kernel invalidates the cached outputs of the
+    ops that launch it)."""
+    return hashlib.sha256(_source(name)).hexdigest()
+
+
+def library_path(name: str) -> Path:
+    h = hashlib.sha256(_source(name) + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 

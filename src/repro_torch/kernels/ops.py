@@ -10,10 +10,17 @@ index is a miss.  As in the TPU wrapper (``_sentinel_gather`` of
 ``src/repro/kernels/relational.py``), it is answered with a tensor of the
 fill made by ``torch.full`` on the card, and counts no launch.  Inputs
 are validated the same way on both devices, so a call that the kernel
-would refuse also fails on the CPU.
+would refuse also fails on the CPU, with one exception: a segment
+reduction whose ``order`` names a row twice (so is no permutation).  On
+the card the few-groups path (G <= 32) raises ``ValueError``, the
+many-groups path (the sorted-runs gather) returns its result, and the
+CPU returns the result of ``vkernels``, whose bits it keeps at every G.
+The relational ops always pass ``group_ranges``' permutation, so no call
+of theirs sees this.
 
-``launch_counts`` holds one plain integer per kernel, raised by one where
-the wrapper launches that kernel and nowhere else; a run sets them to 0
+``launch_counts`` holds one plain integer per kernel, raised by one (under
+a lock, since the executor's worker threads call the wrappers at once)
+where the wrapper launches that kernel and nowhere else; a run sets them to 0
 (``reset_launch_counts``) and reads them afterwards to show that its path
 went through the kernels.  There is one count per kernel, named after
 the function the main path calls it through: ``combine_hashes`` also
@@ -33,6 +40,7 @@ CPU stay differentiable.
 
 from __future__ import annotations
 
+import threading
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -48,9 +56,18 @@ launch_counts: Dict[str, int] = {
     "take_rows": 0, "dict_decode": 0}
 
 
+_count_lock = threading.Lock()
+
+
 def reset_launch_counts() -> None:
-    for name in launch_counts:
-        launch_counts[name] = 0
+    with _count_lock:
+        for name in launch_counts:
+            launch_counts[name] = 0
+
+
+def _count(name: str) -> None:
+    with _count_lock:
+        launch_counts[name] += 1
 
 
 def _on_cuda(*ts: torch.Tensor) -> bool:
@@ -127,7 +144,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
     _refuse_grad("flash_attention", q, k, v)
     out = flash_attention_cuda(q, k, v, causal=causal, window=window)
-    launch_counts["flash_attention"] += 1
+    _count("flash_attention")
     return out
 
 
@@ -172,7 +189,7 @@ def wkv6(r, k, v, w, u, state=None):
     _refuse_grad("wkv6", *ts)
     out = wkv6_cuda(*(t.contiguous() for t in (r, k, v, w, u)),
                     None if state is None else state.contiguous())
-    launch_counts["wkv6"] += 1
+    _count("wkv6")
     return out
 
 
@@ -199,7 +216,7 @@ def rglru_scan(a, b, h0=None):
     _refuse_grad("rglru_scan", *ts)
     out = rglru_scan_cuda(a.contiguous(), b.contiguous(),
                           None if h0 is None else h0.contiguous())
-    launch_counts["rglru_scan"] += 1
+    _count("rglru_scan")
     return out
 
 
@@ -239,7 +256,7 @@ def hash_fixed(x: torch.Tensor) -> torch.Tensor:
     if not cuda:
         return ref.hash_fixed_ref(x)
     out = relational.hash_fixed_cuda(x)
-    launch_counts["hash_fixed"] += 1
+    _count("hash_fixed")
     return out
 
 
@@ -260,7 +277,7 @@ def combine_hashes(cols: torch.Tensor, mix_first: bool = False
     if not cuda:
         return ref.combine_ref(cols, mix_first)
     out = relational.combine_cuda(cols, mix_first)
-    launch_counts["combine_hashes"] += 1
+    _count("combine_hashes")
     return out
 
 
@@ -292,7 +309,7 @@ def _sentinel_gather(src: torch.Tensor, idx: torch.Tensor,
         return ref.sentinel_gather_ref(src, idx, fill)
     out = relational.sentinel_gather_cuda(src, idx,
                                           fill & ((1 << 8 * w) - 1))
-    launch_counts["filter_join_gather"] += 1
+    _count("filter_join_gather")
     return out
 
 
@@ -370,7 +387,7 @@ def _segreduce(hows: Tuple[str, ...], values: Optional[torch.Tensor],
         return ref.segreduce_many_ref(hows, values, order, starts, valid, n)
     words, counts, twice = relational.segreduce_cuda(
         relational.segreduce_path(G), hows, values, order, starts, valid, n)
-    launch_counts["segreduce"] += 1
+    _count("segreduce")
     if twice is not None and bool(twice):
         raise ValueError(f"{what}: order names a row twice, so it is not a "
                          f"permutation of [0, {n})")
@@ -492,7 +509,7 @@ def _row_gather(what: str, table: torch.Tensor, idx: torch.Tensor, plain,
     if M == 0 or W == 0:
         return torch.empty((M, W), dtype=table.dtype, device=table.device)
     out = kernel(table.contiguous(), idx.contiguous())
-    launch_counts[what] += 1
+    _count(what)
     return out
 
 

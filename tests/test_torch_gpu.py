@@ -5,8 +5,10 @@ with a window; the WKV-6 and RG-LRU scans at
 ragged lengths and widths; the relational kernels (splitmix64, sentinel
 gather, segment reductions) bit for bit over every dtype family and edge
 case, and the relational ops on the card against the same ops on the CPU;
-the row gather and dictionary decode bit for bit, and the gradient guard
-of every wrapper that takes floats.  Skips without a CUDA card; run it
+read-only inputs at the kdispatch edge and the plan-compiled star query
+through the executor's threads and Flight workers; the row gather and
+dictionary decode bit for bit, and the gradient guard of every wrapper
+that takes floats.  Skips without a CUDA card; run it
 there with
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -424,6 +426,88 @@ def test_star_query_on_the_card_equals_the_cpu(cuda):
         with kdispatch.using_device(dev):
             j = rops.join(orders, cust, "cust", how="left")
             out[dev] = raw_buffers(rops.group_by(j, "country", aggs))
+    assert out["cuda"] == out["cpu"]
+
+
+def _read_only(a):
+    a = np.array(a)
+    a.flags.writeable = False
+    return a
+
+
+def test_read_only_inputs_on_the_card(cuda):
+    """Read-only arrays (what the core's store hands out) through every
+    kdispatch entry on the card: results equal ``vkernels``, inputs are
+    unchanged, and each crossed with no host copy (the bytes sent to the
+    card are exactly the inputs')."""
+    from repro_torch.core import vkernels
+    rng = np.random.default_rng(0)
+    n = 1 << 16
+    k64 = _read_only(rng.integers(-(1 << 62), 1 << 62, n, dtype=np.int64))
+    u64 = _read_only(rng.integers(0, 1 << 64, n, dtype=np.uint64))
+    codes = rng.integers(0, 97, n)
+    order, starts = (_read_only(a) for a in vkernels.group_ranges([codes]))
+    valid = _read_only(rng.random(n) < 0.8)
+    sel = _read_only(np.nonzero(rng.random(n) < 0.5)[0])
+    idx = _read_only(rng.integers(-1, len(sel), n))
+    before = [a.copy() for a in (k64, u64, order, starts, valid, sel, idx)]
+    with kdispatch.using_device("cuda"):
+        kdispatch.reset_edge_bytes()
+        got = kdispatch.hash_fixed(k64)
+        assert kdispatch.edge_bytes["to_device"] == k64.nbytes
+        assert np.array_equal(got, vkernels.hash_fixed(before[0]))
+        assert np.array_equal(kdispatch.hash_keys([u64], n),
+                              vkernels.hash_keys([before[1]], n))
+        assert np.array_equal(kdispatch.filter_join_gather(sel, idx),
+                              vkernels.filter_join_gather(before[5],
+                                                          before[6]))
+        kdispatch.reset_edge_bytes()
+        red = kdispatch.grouped_reduce(k64, order, starts, valid,
+                                       ["count", "sum", "min", "max"])
+        assert kdispatch.edge_bytes["to_device"] == sum(
+            a.nbytes for a in (k64, order, starts, valid))
+    for h, (vals, counts) in red.items():
+        want = vkernels.GROUPED_REDUCERS[h](before[0], before[2], before[3],
+                                            before[4])
+        assert np.array_equal(vals, want[0]) and np.array_equal(counts,
+                                                                want[1])
+    for a, b in zip((k64, u64, order, starts, valid, sel, idx), before):
+        assert np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("mode", ["thread", "process"])
+def test_plan_compiled_star_through_the_executor(cuda, tmp_path, mode):
+    """The plan-compiled star query through the executor's threads or 2
+    Flight workers on the card equals the CPU's; the kernels launch in
+    the parent (threads) or in the workers (processes)."""
+    from repro_torch.core import (BufferStore, RMConfig, ResourceManager,
+                                  make_executor, plan, zarquet)
+    orders, cust = star_tables(0, 200_000, 20_000)
+    po, pc = str(tmp_path / "o.zq"), str(tmp_path / "c.zq")
+    zarquet.write_table(po, orders)
+    zarquet.write_table(pc, cust)
+    aggs = {"total": ("amount", "sum"), "n": ("amount", "count")}
+    query = plan.scan(po).join(plan.scan(pc), on="cust", how="left") \
+        .group_by("country", aggs)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        with kdispatch.using_device(dev):
+            store = BufferStore(backing="file" if mode == "process"
+                                else "ram")
+            ex = make_executor(store, ResourceManager(store, RMConfig(
+                workers=2, workers_mode=mode)), workers=2)
+            try:
+                ops.reset_launch_counts()
+                cp = plan.compile_plans({"q": query})
+                ex.run([cp.dag])
+                out[dev] = raw_buffers(cp.read(store, "q"))
+                launched = ops.launch_counts["segreduce"] + sum(
+                    v for k, v in getattr(ex, "worker_stats", {}).items()
+                    if k == "launches:segreduce")
+            finally:
+                ex.close()
+                store.close()
+            assert launched == (dev == "cuda")
     assert out["cuda"] == out["cpu"]
 
 
