@@ -115,14 +115,43 @@
     small star before it shows what a worker's first join costs (its CUDA
     context and the kernels' libraries).
 13. Zerrow prompts: smollm-135m at full width served over
-    ``ZerrowPromptSource`` (4 zarquet shards of 32 prompts, one DAG a
+    ``ZerrowPromptSource`` (4 zarquet shards of 8 prompts, one DAG a
     shard) in thread and in process mode, batch 8, max_seq 1024, 32 new
     tokens: every prompt must be its shard text byte-tokenized, every
     prefill must launch flash attention once per layer, tokens in
     ``[0, vocab)``; then ``python -m repro_torch.launch.serve
     --prompt-shards 4 --workers 2 --workers-mode process`` as a user
     runs it, for 2 rounds.
-14. A JSON line per kernel, then ``{"ok": true, "device": ...}`` as the
+14. The training input pipeline (run right after phase 13):
+    ``ZerrowDataPipeline`` over a corpus of 4 zarquet shards of 250,000
+    documents each (about 22 MB of text a shard) and the metadata of
+    1,000,000 documents (keep_frac 0.75), batch 8 x 1024 tokens, in thread
+    mode (4 workers) on ``cuda`` and on ``cpu``, then through 2 Flight
+    workers on ``cuda``.  Every batch of each run must equal the numpy
+    recount (the kept documents' bytes in order), so the three runs are
+    bit-identical; the launch counts, set to 0 just before each run and
+    read just after, must be 4 times what one shard's join by hand
+    launches, in this process for threads and in the workers (the parent
+    launching nothing) for processes.  Each run's wall time and stats.
+15. Train smollm-135m at full width (30 layers, d_model 576, vocab 49152,
+    float32 masters, bf16 compute, remat, AdamW; weights drawn on the card
+    from a seeded CUDA generator) for 30 steps on phase 14's batches,
+    peak lr 1e-3, warmup 10: every loss and grad norm finite, the mean
+    loss of the last 5 steps below step 0's, no kernel launched on the
+    model path (attention trains through ``chunked_attention``).  Median
+    step time, tokens per second, peak memory, and a profiled step.
+16. The card against the CPU: the same full-width model in float32 (TF32
+    off), B 1 x S 128, from the same weights (drawn by a CPU generator):
+    step 0's grads per leaf within 1e-5 relative L2, the loss and grad
+    norm of two steps within 1e-4.
+17. Checkpoints: phase 15's train state saved through ``CheckpointStore``
+    (async) and restored onto the card into a fresh state, bit for bit; a
+    second save reuses every blob.  Then ``python -m
+    repro_torch.launch.train --arch smollm-135m --steps 50 --ckpt-dir D``
+    as a user runs it, with ``TMPDIR`` set to a fresh directory (it makes
+    its own corpus), and again with ``--resume --steps 10``, which must
+    resume from step 50; every loss finite.
+18. A JSON line per kernel, then ``{"ok": true, "device": ...}`` as the
     last line.
 
 Every check that fails exits non-zero before the last line is printed.
@@ -134,6 +163,7 @@ from __future__ import annotations
 
 import contextlib
 import cProfile
+import dataclasses
 import hashlib
 import itertools
 import json
@@ -166,7 +196,15 @@ from repro_torch.kernels import (  # noqa: E402
     build, flash_attention, ops, ref, relational, take_gather, wkv6)
 from repro_torch.models import attention  # noqa: E402
 from repro_torch.models.api import ModelAPI  # noqa: E402
+from repro_torch.data.pipeline import (  # noqa: E402
+    PipelineConfig, ZerrowDataPipeline, join_filter_fn, make_doc_meta,
+    make_text_shards)
 from repro_torch.launch import serve as serve_launcher  # noqa: E402
+from repro_torch.models.convert import (  # noqa: E402
+    flatten_paths, jax_leaves, train_state_to_jax)
+from repro_torch.runtime.checkpoint import CheckpointStore  # noqa: E402
+from repro_torch.train.trainstep import (  # noqa: E402
+    init_state, make_train_step)
 from repro_torch.serve.engine import (  # noqa: E402
     Request, ServeEngine, ZerrowPromptSource, make_prompt_shards,
     pad_prompts)
@@ -524,7 +562,7 @@ def phase_times():
                 bound_by=bound_by, library_ms=lib_ms)
 
 
-def plain_attend(q, k, v, cfg, causal, window):
+def plain_attend(q, k, v, cfg, causal, window, mode):
     return attention.chunked_attention(q, k, v, causal=causal, window=window)
 
 
@@ -1387,7 +1425,9 @@ def phase_zerrow_prompts() -> dict:
     root = tempfile.mkdtemp(prefix="zerrow-prompts-")
     flash = {}
     try:
-        shards = make_prompt_shards(root, 4, 32)
+        # 4 batches a mode: each served batch repeats phase 4's path, so
+        # more batches add time and no coverage
+        shards = make_prompt_shards(root, 4, 8)
         texts = [t for p in shards
                  for t in zarquet.read_table(p).to_pydict()["text"]]
         want = [(np.frombuffer(t.encode(), np.uint8).astype(np.int32)
@@ -2160,6 +2200,313 @@ def phase_serve_rgemma() -> dict:
     return launches
 
 
+# --------------------------------------------------------------------------
+# training smollm-135m on the Zerrow pipeline's batches
+# --------------------------------------------------------------------------
+
+# the corpus: 4 shards of 250,000 documents (8-24 words each, about 22 MB
+# of text a shard) and the metadata of 1,000,000 documents, 0.75 kept
+N_SHARDS, DOCS_PER_SHARD, KEEP_FRAC = 4, 250_000, 0.75
+TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_WARMUP, TRAIN_LR = 8, 1024, 30, 10, 1e-3
+# card against CPU, float32 (TF32 off): step 0's grads per leaf by relative
+# L2 (the two devices sum the same products in other orders, which moves a
+# leaf by a few 1e-6 of its norm at most), the loss and grad norm of two
+# steps by relative error
+GRAD_TOL, STEP_TOL = 1e-5, 1e-4
+
+
+def batch_digest(b) -> bytes:
+    return hashlib.blake2b(b["tokens"].tobytes() + b["labels"].tobytes(),
+                           digest_size=16).digest()
+
+
+def expected_digests(shards, meta, B: int, S: int) -> list:
+    """The digests of the batches the pipeline must yield, from numpy
+    alone: per shard, the utf8 bytes (+1) of the documents whose keep flag
+    is set, in document order, cut to whole spans of B x (S + 1)."""
+    keep = zarquet.read_table(meta).combine().batches[0].column("keep").values
+    span = B * (S + 1)
+    out = []
+    for path in shards:
+        b = zarquet.read_table(path).combine().batches[0]
+        text, doc = b.column("text"), b.column("doc").values
+        lens = np.diff(text.offsets)
+        kept = keep[doc] != 0
+        starts = text.offsets[:-1][kept]
+        ids = np.concatenate([text.values[s0:s0 + n] for s0, n in
+                              zip(starts, lens[kept])]).astype(np.int32) + 1
+        for i in range(len(ids) // span):
+            arr = ids[i * span:(i + 1) * span].reshape(B, S + 1)
+            out.append(batch_digest({
+                "tokens": np.ascontiguousarray(arr[:, :-1]),
+                "labels": np.ascontiguousarray(arr[:, 1:])}))
+    return out
+
+
+def run_pipeline(shards, meta, mode: str, workers: int, keep_first: int = 0):
+    """One epoch of ZerrowDataPipeline: (digests, the first ``keep_first``
+    batches, wall s, stats, launches in this process, the Flight workers'
+    echoed launches)."""
+    pipe = ZerrowDataPipeline(shards, PipelineConfig(
+        batch=TRAIN_B, seq_len=TRAIN_S, workers=workers, workers_mode=mode,
+        meta_path=meta))
+    digests, first = [], []
+    try:
+        sync()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        for b in pipe.batches():
+            digests.append(batch_digest(b))
+            if len(first) < keep_first:
+                first.append(b)
+        sync()
+        wall = time.perf_counter() - t0
+        launches = dict(ops.launch_counts)
+        stats = pipe.stats()
+        worker = {k.split(":", 1)[1]: v for k, v in
+                  getattr(pipe.ex, "worker_stats", {}).items()
+                  if k.startswith("launches:")}
+    finally:
+        pipe.close()
+    return digests, first, wall, stats, launches, worker
+
+
+def phase_pipeline(root: str):
+    """Phase 14: the training input pipeline at full width, its corpus
+    join on the card's relational kernels.  Returns the launches by path
+    and the first batches of the cuda run."""
+    t0 = time.perf_counter()
+    shards = make_text_shards(os.path.join(root, "corpus"), N_SHARDS,
+                              DOCS_PER_SHARD, seed=0)
+    meta = make_doc_meta(os.path.join(root, "meta"),
+                         N_SHARDS * DOCS_PER_SHARD, keep_frac=KEEP_FRAC)
+    text_bytes = sum(int(np.diff(zarquet.read_table(p).combine()
+                                 .batches[0].column("text").offsets).sum())
+                     for p in shards)
+    want = expected_digests(shards, meta, TRAIN_B, TRAIN_S)
+    print(f"train pipeline: corpus of {N_SHARDS} shards x {DOCS_PER_SHARD} "
+          f"documents ({text_bytes} bytes of text; "
+          f"{sum(os.path.getsize(p) for p in shards)} bytes of zarquet) and "
+          f"metadata of {N_SHARDS * DOCS_PER_SHARD} documents, keep_frac "
+          f"{KEEP_FRAC}, made in {time.perf_counter() - t0:.1f} s; "
+          f"{len(want)} batches of {TRAIN_B} x {TRAIN_S} expected")
+    # one shard joined by hand, as the pipeline's joinf node joins it
+    tables = [zarquet.read_table(shards[0]),
+              zarquet.read_table(meta, dict_columns=("lang",))]
+    sync()
+    ops.reset_launch_counts()
+    join_filter_fn(tables)
+    sync()
+    per_shard = dict(ops.launch_counts)
+    del tables
+    want_launches = {k: N_SHARDS * v for k, v in per_shard.items()}
+    print(f"train pipeline: one shard's join by hand launches {per_shard}")
+
+    runs = {}
+    for label, device, mode, workers in (("cuda, threads", "cuda", "thread",
+                                          4),
+                                         ("cpu, threads", "cpu", "thread", 4),
+                                         ("cuda, processes", "cuda",
+                                          "process", 2)):
+        with kdispatch.using_device(device):
+            runs[label] = r = run_pipeline(shards, meta, mode, workers,
+                                           keep_first=TRAIN_STEPS + 1)
+        digests, _, wall, stats, launches, worker = r
+        print(f"train pipeline, {label} ({workers} workers): "
+              f"{len(digests)} batches in {wall:.2f} s "
+              f"({len(digests) * TRAIN_B * TRAIN_S / wall:.0f} tokens/s); "
+              f"launches here {launches}; in the workers {worker}; stats "
+              f"{ {k: v for k, v in stats.items() if k in ('decache_hits', 'loads', 'bytes_copied', 'bytes_deanon', 'bytes_reshared', 'reshare_hits')} }")
+        check(digests == want, f"train pipeline, {label}: batches differ "
+              f"from the numpy recount ({len(digests)} vs {len(want)})")
+    zeros = dict.fromkeys(ops.launch_counts, 0)
+    check(runs["cuda, threads"][4] == dict(zeros, **want_launches),
+          f"train pipeline, cuda: launches {runs['cuda, threads'][4]} != "
+          f"{N_SHARDS} x one shard's {per_shard}")
+    check(runs["cpu, threads"][4] == zeros,
+          f"train pipeline, cpu: launches {runs['cpu, threads'][4]}")
+    proc_worker = dict(zeros, **runs["cuda, processes"][5])
+    check(runs["cuda, processes"][4] == zeros,
+          f"train pipeline, processes: the parent launched "
+          f"{runs['cuda, processes'][4]}")
+    check(proc_worker == runs["cuda, threads"][4],
+          f"train pipeline, processes: the workers launched {proc_worker} "
+          f"!= the thread run's {runs['cuda, threads'][4]}")
+    tokens = len(want) * TRAIN_B * (TRAIN_S + 1)
+    print(f"train pipeline: every batch of the three runs bit-identical to "
+          f"the numpy recount (so cuda = cpu = processes); {tokens} packed "
+          f"tokens of {text_bytes}: {tokens / text_bytes:.4f} kept "
+          f"(keep_frac {KEEP_FRAC})")
+    check(abs(tokens / text_bytes - KEEP_FRAC) < 0.02,
+          "train pipeline: the kept share of tokens is not about keep_frac")
+    return {"train pipeline": runs["cuda, threads"][4],
+            "train pipeline, processes": proc_worker}, \
+        runs["cuda, threads"][1]
+
+
+def to_device(b, dev):
+    return {k: torch.from_numpy(b[k]).to(dev) for k in ("tokens", "labels")}
+
+
+def phase_train(batches):
+    """Phase 15: smollm-135m at full width trains 30 steps on the
+    pipeline's batches.  Returns (api, state)."""
+    cfg = get_arch("smollm-135m")
+    api = ModelAPI(cfg, device=CUDA)
+    state = init_state(api, torch.Generator(device=CUDA).manual_seed(0))
+    step = make_train_step(api, peak_lr=TRAIN_LR, warmup=TRAIN_WARMUP,
+                           total_steps=TRAIN_STEPS)
+    n = sum(p.numel() for p in api.model.parameters())
+    print(f"train: {cfg.name} {len(api.model.blocks)} layers, d_model "
+          f"{cfg.d_model}, vocab {cfg.vocab}, {n} float32 parameters, "
+          f"{cfg.dtype} compute, remat {cfg.remat}, {cfg.optimizer}; "
+          f"B {TRAIN_B} x S {TRAIN_S}, peak lr {TRAIN_LR}, warmup "
+          f"{TRAIN_WARMUP}")
+    losses, norms, times = [], [], []
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    for b in batches[:TRAIN_STEPS]:
+        t0 = time.perf_counter()
+        state, m = step(state, to_device(b, CUDA))
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        sync()
+        times.append(time.perf_counter() - t0)
+    launches = dict(ops.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    med = statistics.median(times[1:])
+    print(f"train: losses {[round(x, 4) for x in losses]}")
+    print(f"train: grad norms {[round(x, 4) for x in norms]}")
+    print(f"train: {TRAIN_STEPS} steps; step 0 {times[0] * 1e3:.1f} ms, "
+          f"median of steps 1-{TRAIN_STEPS - 1} {med * 1e3:.2f} ms "
+          f"(min {min(times[1:]) * 1e3:.2f}, max {max(times[1:]) * 1e3:.2f}"
+          f"), {TRAIN_B * TRAIN_S / med:.0f} tokens/s; max memory allocated "
+          f"{peak / 2**30:.3f} GiB; launches {launches}")
+    check(all(np.isfinite(losses)) and all(np.isfinite(norms)),
+          "train: a loss or grad norm is not finite")
+    check(float(np.mean(losses[-5:])) < losses[0],
+          f"train: the loss did not fall ({losses[0]} -> mean of the last "
+          f"5 {np.mean(losses[-5:])})")
+    check(launches == dict.fromkeys(ops.launch_counts, 0),
+          f"train: the model path launched {launches} (attention trains "
+          "through chunked_attention)")
+    profile_run(lambda: step(state, to_device(batches[TRAIN_STEPS], CUDA)),
+                f"one train step (B {TRAIN_B} x S {TRAIN_S})", top=10)
+    return api, state
+
+
+def phase_train_vs_cpu(batches) -> None:
+    """Phase 16: the full-width model in float32 on the card and on the
+    CPU from the same weights (drawn by a CPU generator): step 0's grads
+    per leaf, then the loss and grad norm of two train steps."""
+    cfg = dataclasses.replace(get_arch("smollm-135m"), dtype="float32")
+    b = [{k: v[:1, :128].copy() for k, v in x.items()} for x in batches[:2]]
+    apis, grads, metrics = {}, {}, {}
+    for name, dev in (("cpu", "cpu"), ("cuda", CUDA)):
+        api = ModelAPI(cfg, device=dev)
+        api.model.init(torch.Generator().manual_seed(0))
+        loss, _ = api.train_loss(to_device(b[0], dev))
+        leaves = jax_leaves(api.model)
+        params = [p for leaf in leaves for p in leaf.params]
+        g = dict(zip(params, torch.autograd.grad(loss, params)))
+        grads[name] = {leaf.path: leaf.stack([g[p] for p in leaf.params])
+                       .double().cpu() for leaf in leaves}
+        state = init_state(api)
+        step = make_train_step(api, peak_lr=TRAIN_LR, warmup=1,
+                               total_steps=10)
+        ms = []
+        for x in b:
+            state, m = step(state, to_device(x, dev))
+            ms.append((float(m["loss"]), float(m["grad_norm"])))
+        metrics[name] = ms
+        apis[name] = api
+    worst = max(((a - c).norm() / c.norm()).item() for a, c in zip(
+        grads["cuda"].values(), grads["cpu"].values()))
+    print(f"train, card vs cpu (float32, B 1 x S 128): step 0's grads, "
+          f"worst relative L2 over {len(grads['cpu'])} leaves {worst!r} "
+          f"(tol {GRAD_TOL}); (loss, grad norm) of two steps cuda "
+          f"{metrics['cuda']} cpu {metrics['cpu']}")
+    check(worst <= GRAD_TOL, "train, card vs cpu: step 0's grads")
+    for (l1, g1), (l0, g0) in zip(metrics["cuda"], metrics["cpu"]):
+        check(abs(l1 - l0) <= STEP_TOL * abs(l0)
+              and abs(g1 - g0) <= STEP_TOL * abs(g0),
+              "train, card vs cpu: loss or grad norm of a step")
+    # Parameters are not compared element by element after an update: Adam's
+    # first step moves each weight by about lr * sign(g), so a near-zero
+    # gradient that rounds to the other sign on one device moves that
+    # weight by 2 * lr there.  The second step's loss and grad norm carry
+    # the whole update instead.
+    del apis
+
+
+def phase_checkpoint(root: str, state) -> None:
+    """Phase 17: the phase-15 train state saved through CheckpointStore
+    (async) and restored onto the card into a fresh state, bit for bit; a
+    second save reuses every blob.  Then the launcher as a user runs it,
+    and again with --resume."""
+    ck = os.path.join(root, "ckpt")
+    store = CheckpointStore(ck)
+    t0 = time.perf_counter()
+    step = int(state["step"])
+    mani = store.save(step, state)
+    t_save = time.perf_counter() - t0
+    store.flush()
+    t_flush = time.perf_counter() - t0
+    written = dict(store.stats)
+    fresh_api = ModelAPI(get_arch("smollm-135m"), device=CUDA)
+    fresh = init_state(fresh_api, torch.Generator(device=CUDA).manual_seed(1))
+    t0 = time.perf_counter()
+    restored, rmani = store.restore(like=fresh)
+    sync()
+    t_restore = time.perf_counter() - t0
+    a, b = (flatten_paths(train_state_to_jax(s)) for s in (state, restored))
+    check(sorted(a) == sorted(b) and all(
+        a[k].dtype == b[k].dtype and a[k].tobytes() == b[k].tobytes()
+        for k in a), "checkpoint: the restored state is not bit-identical")
+    check(all(t.device.type == "cuda" for t in
+              [*fresh_api.model.parameters(), restored["step"],
+               *flatten_paths(restored["opt"]).values()]),
+          "checkpoint: a restored tensor is not on the card")
+    store.save(step + 1, state)
+    store.flush()
+    reused = store.stats["blobs_reused"] - written["blobs_reused"]
+    check(store.stats["blobs_written"] == written["blobs_written"]
+          and reused == len(mani["tensors"]),
+          f"checkpoint: the second save wrote "
+          f"{store.stats['blobs_written'] - written['blobs_written']} blobs")
+    store.close()
+    print(f"checkpoint: step {rmani['step']}, {len(mani['tensors'])} tensors "
+          f"({written['bytes_written']} bytes) saved in {t_save:.2f} s "
+          f"({t_flush:.2f} s to flush the async writer), restored onto the "
+          f"card bit for bit in {t_restore:.2f} s; the second save reused "
+          f"all {reused} blobs")
+    del fresh_api, fresh, restored
+
+    env = dict(os.environ, TMPDIR=os.path.join(root, "launcher-tmp"),
+               PYTHONPATH=os.path.join(ROOT, "src"))
+    os.makedirs(env["TMPDIR"])
+    d = os.path.join(root, "launcher-ckpt")
+    outs = []
+    for extra in (["--steps", "50"], ["--steps", "10", "--resume"]):
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+               "smollm-135m", "--ckpt-dir", d, *extra]
+        t0 = time.perf_counter()
+        r = subprocess.run(cmd, env=env, cwd=root, capture_output=True,
+                           text=True, timeout=600)
+        print(f"launcher {' '.join(extra)}: exit {r.returncode} in "
+              f"{time.perf_counter() - t0:.1f} s")
+        print("\n".join("  " + x for x in r.stdout.splitlines()))
+        check(r.returncode == 0, f"launcher {extra}: {r.stderr[-3000:]}")
+        losses = [float(x.split()[3]) for x in r.stdout.splitlines()
+                  if x.startswith("step ")]
+        check(len(losses) > 0 and all(np.isfinite(losses)),
+              f"launcher {extra}: losses {losses}")
+        outs.append(r.stdout)
+    check("resumed from step 50" in outs[1],
+          "launcher --resume did not resume from step 50")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAILED: torch.cuda.is_available() is False: chip_smoke.py "
@@ -2181,6 +2528,16 @@ def main() -> int:
     zerrow_launches = phase_zerrow_star(orders, customers, group_bys)
     del orders, customers, group_bys
     prompt_flash = phase_zerrow_prompts()
+    root = tempfile.mkdtemp(prefix="zerrow-train-")
+    try:
+        train_paths, train_batches = phase_pipeline(root)
+        train_api, train_state = phase_train(train_batches)
+        phase_train_vs_cpu(train_batches)
+        phase_checkpoint(root, train_state)
+        del train_api, train_state, train_batches
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     rec_err = phase_recurrent_vs_plain()
     rec_times = phase_recurrent_times()
     gather_err, gather_launches = phase_gather_vs_plain()
@@ -2215,7 +2572,8 @@ def main() -> int:
         t = rel_times[name]
         paths = {"star": rel_launches[name],
                  **{f"zerrow {k}": v[name]
-                    for k, v in zerrow_launches.items()}}
+                    for k, v in zerrow_launches.items()},
+                 **{k: v[name] for k, v in train_paths.items() if v[name]}}
         kernels.append(dict(
             name=name, route="cuda",
             source=f"src/repro_torch/kernels/csrc/{src}",

@@ -62,7 +62,9 @@ This package is the PyTorch port's own copy of the JAX package's
 ``core/``: the modules keep their names and public API, and only their
 imports and the seams where the numpy core meets the card differ
 (``kdispatch``'s edge and fingerprint tags, the device a spawned Flight
-worker runs on, the launch counters under the executor's threads).
+worker runs on, the launch counters under the executor's threads), and
+rollback eviction has a progress guard (``EvictionPolicy.pinned``) that
+ends a livelock the JAX package's scheduler keeps.
 
 Register a new policy by subclassing ``EvictionPolicy`` (decorate with
 ``sched.register_eviction``) or ``SchedulePolicy`` (``register_schedule``)

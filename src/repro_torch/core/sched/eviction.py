@@ -50,6 +50,9 @@ class EvictionPolicy:
     MAX_EVICTIONS_PER_ALLOC = 8   # bound eviction storms: past this the
     #                             # node runs over budget instead of the RM
     #                             # rolling back half the fleet's progress
+    MAX_RERUNS = 4                # progress guard: a node re-run more than
+    #                             # this many times keeps its output until
+    #                             # its consumers have run (see ``victims``)
 
     def __init__(self, rm):
         self.rm = rm
@@ -110,7 +113,8 @@ class EvictionPolicy:
                  and not st.output.released
                  and not st.spec.keep_output
                  and (st.dag.id, st.name) not in protected
-                 and not (st.is_loader and rm.decache.enabled)]
+                 and not (st.is_loader and rm.decache.enabled)
+                 and not self.pinned(st)]
         # Victim order: lowest-priority = scheduled LAST.  Least-progressed
         # DAG first; ties broken by dag id DESCENDING (the scheduler picks
         # ascending ids, so the highest id is needed latest — evicting the
@@ -127,6 +131,22 @@ class EvictionPolicy:
         cands.sort(key=lambda st: (progress[st.dag.id], -st.dag.id,
                                    -st.depth))
         return cands
+
+    def pinned(self, st: NodeState) -> bool:
+        """The progress guard.  Under a schedule that interleaves DAGs
+        (breadth, fair), rollback can evict a node's output to make room
+        for a peer's node, re-run it for its consumer, and evict it again
+        for the peer, forever: each of two chains' loaders re-ran without
+        end, and no consumer ran.  A node that has run more than
+        ``MAX_RERUNS`` + 1 times therefore pins its output, the input of
+        its consumers, until every consumer has run.  Where the JAX
+        package's scheduler finishes (the matrix of policies and schedules
+        in tests/test_torch_core_sched.py), no node re-runs more than
+        twice, so the guard changes nothing there."""
+        if st.runs <= self.MAX_RERUNS + 1:
+            return False
+        return any(st.dag.nodes[c].status != DONE
+                   for c in st.dag.children[st.name])
 
     # -- the mechanism -----------------------------------------------------
     def evict(self, st: NodeState) -> int:

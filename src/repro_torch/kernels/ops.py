@@ -35,7 +35,10 @@ with a ``RuntimeError`` before any launch, an input that requires grad
 while grad is enabled (``_refuse_grad``): the kernel's output would carry
 no ``grad_fn`` and cut the gradient without a word.  Serving runs under
 ``torch.inference_mode()`` and is not affected; the plain versions on the
-CPU stay differentiable.
+CPU stay differentiable.  Training does not reach these wrappers: train
+mode runs attention through ``models.attention.chunked_attention``, as the
+JAX package trains, and the recurrent families' training waits for the
+scans' backward (ROADMAP.md queue 1, item 6).
 """
 
 from __future__ import annotations
@@ -88,8 +91,9 @@ def _refuse_grad(name: str, *ts: torch.Tensor) -> None:
     if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
         raise RuntimeError(
             f"{name}: an input requires grad, but the CUDA kernel has no "
-            "backward yet (ROADMAP.md queue 1, item 6 brings the backward "
-            "kernels); call it under torch.no_grad() or "
+            "backward yet (train mode runs attention through "
+            "chunked_attention; ROADMAP.md queue 1, item 6 brings the "
+            "recurrent scans' backward); call it under torch.no_grad() or "
             "torch.inference_mode(), or on CPU tensors, whose plain "
             "version is differentiable")
 

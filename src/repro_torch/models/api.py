@@ -1,5 +1,5 @@
 """Unified model API: build an architecture on a device and get its
-prefill / decode entry points and input shapes."""
+train / prefill / decode entry points and input shapes."""
 
 from __future__ import annotations
 
@@ -30,6 +30,10 @@ class ModelAPI:
         if shape.kind == "prefill":
             return {"tokens": (B, S)}
         return {"tokens": (B, 1), "positions": (B, 1)}
+
+    def train_loss(self, batch):
+        """(loss, metrics) of a train batch {tokens, labels[, loss_mask]}."""
+        return self.model.loss_fn(batch)
 
     def prefill(self, batch, shape: ShapeConfig):
         return self.model.prefill(batch, cache_len=shape.seq_len)

@@ -1,10 +1,16 @@
-"""GQA attention: prefill through the hand-written flash kernel, decode in
-plain PyTorch over a preallocated KV cache updated in place.
+"""GQA attention: prefill through the hand-written flash kernel, training
+and decode in plain PyTorch (decode over a preallocated KV cache updated
+in place).
 
 ``chunked_attention`` is the JAX package's chunked online-softmax path
-(its default ``attention_impl="xla"``) in plain PyTorch: the model's
-plain reference, with which ``chip_smoke.py`` recomputes a served prefill
-in place of the kernel.
+(its default ``attention_impl="xla"``) in plain PyTorch.  Train mode runs
+through it, as the JAX package trains: no kernel of either package has a
+backward, and the flash wrapper refuses inputs that require grad on the
+card.  Under autograd each query block runs in ``torch.utils.checkpoint``,
+so the backward pass recomputes the block's scores instead of saving them
+(the port's counterpart of the JAX package's ``@jax.checkpoint``).  It is
+also the model's plain reference, with which ``chip_smoke.py`` recomputes
+a served prefill in place of the kernel.
 """
 
 from __future__ import annotations
@@ -13,6 +19,7 @@ from typing import Dict, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels import ops
 from .layers import apply_rope, dense_init_
@@ -59,7 +66,10 @@ def chunked_attention(q, k, v, *, causal: bool, window: int = 0,
                       chunk: int = 1024, q_chunk: int = 512, q_offset=0):
     """Double-blocked online-softmax attention (flash semantics, plain
     PyTorch).  q: (B, S, H, hd); k, v: (B, T, KV, hd); GQA via head
-    grouping.  ``q_offset``: absolute position of q[:, 0]."""
+    grouping.  ``q_offset``: absolute position of q[:, 0].  When autograd
+    records, each block of ``q_chunk`` queries is recomputed in the
+    backward pass (``torch.utils.checkpoint``), so the (S x T) scores are
+    never saved."""
     B, S, H, hd = q.shape
     KV = k.shape[2]
     G = H // KV
@@ -68,12 +78,18 @@ def chunked_attention(q, k, v, *, causal: bool, window: int = 0,
     if S % qc:
         qc = S          # odd small sizes: single block
     qg = q.reshape(B, S, KV, G, hd)
+    recompute = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
+    kw = dict(causal=causal, window=window, chunk=chunk, scale=scale)
     outs = []
     for s0 in range(0, S, qc):
         q_pos = q_offset + s0 + torch.arange(qc, device=q.device)
-        outs.append(_online_softmax(qg[:, s0:s0 + qc], k, v, q_pos,
-                                    causal=causal, window=window,
-                                    chunk=chunk, scale=scale))
+        if recompute:
+            outs.append(checkpoint(_online_softmax, qg[:, s0:s0 + qc], k, v,
+                                   q_pos, use_reentrant=False, **kw))
+        else:
+            outs.append(_online_softmax(qg[:, s0:s0 + qc], k, v, q_pos,
+                                        **kw))
     return torch.cat(outs, dim=1).reshape(B, S, H, hd).to(q.dtype)
 
 
@@ -101,10 +117,16 @@ def decode_attention(q, k_cache, v_cache, cache_len):
     return out.reshape(B, 1, H, hd).to(q.dtype)
 
 
-def _attend(q, k, v, cfg, causal: bool, window: int):
-    """Prefill attention.  Always the flash wrapper: the hand-written
-    kernel for CUDA tensors, its plain version for CPU tensors.
-    ``cfg.attention_impl`` selects nothing here."""
+def _attend(q, k, v, cfg, causal: bool, window: int, mode: str):
+    """Attention of a whole sequence.  Prefill: the flash wrapper, the
+    hand-written kernel for CUDA tensors and its plain version for CPU
+    tensors.  Train: ``chunked_attention`` over ``cfg.attn_chunk`` keys,
+    as the JAX package's default ``attention_impl="xla"`` trains, each
+    query block recomputed in the backward pass.  ``cfg.attention_impl``
+    selects nothing here."""
+    if mode == "train":
+        return chunked_attention(q, k, v, causal=causal, window=window,
+                                 chunk=cfg.attn_chunk)
     return ops.flash_attention(q, k, v, causal=causal, window=window)
 
 
@@ -144,9 +166,9 @@ def attn_apply(p, x, *, cfg, mode: str, cache: Optional[Dict] = None,
         k = apply_rope(k, pos, cfg.rope_theta)
 
     if mode == "train" or (mode == "prefill" and cache is None):
-        out = _attend(q, k, v, cfg, causal, window)
+        out = _attend(q, k, v, cfg, causal, window, mode)
     elif mode == "prefill":
-        out = _attend(q, k, v, cfg, causal, window)
+        out = _attend(q, k, v, cfg, causal, window, mode)
         T = cache["k"].shape[1]
         kk, vv = (k[:, S - T:], v[:, S - T:]) if T < S else (k, v)
         n = kk.shape[1]

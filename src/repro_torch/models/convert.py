@@ -1,6 +1,7 @@
-"""Load the JAX package's ``DecoderLM.init`` pytree into the port's model.
+"""Carry weights and train states between the JAX package's layout and
+the port's.
 
-The pytree comes as nested dicts of numpy arrays (``jax.tree.map(
+The JAX pytree comes as nested dicts of numpy arrays (``jax.tree.map(
 np.asarray, params)``), so this module needs no JAX.  ``params["blocks"]``
 holds one stacked subtree per block kind, ``b0`` .. ``b{k-1}``, with a
 leading group axis; group g's kind i becomes the port's sub-block
@@ -8,14 +9,23 @@ leading group axis; group g's kind i becomes the port's sub-block
 ``ln1`` becomes the norm's ``weight``; RWKV leaves nest as ``time.*`` and
 ``channel.*``).  Values are copied as they are (float32 stays float32),
 and a missing, extra or misshapen leaf raises.
+
+A JAX leaf is the unit the optimizers decide and reduce over
+(``train/optimizer.py``), so ``jax_leaves`` groups the port's parameters
+by it, and a train state converts both ways: ``{"params", "opt",
+"step"}`` with the optimizer state in the JAX layout (one tensor, or one
+``vr``/``vc``/``v`` dict, per stacked leaf).  Checkpoints are written in
+that layout, so either package restores the other's snapshots.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from dataclasses import dataclass
+from typing import Any, Dict, List, Mapping, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from ..configs.base import ArchConfig
 from .lm import DecoderLM, block_kinds, n_groups
@@ -69,3 +79,132 @@ def load_jax_params(model: DecoderLM,
                              f"fit {tuple(own[key].shape)} {own[key].dtype}")
     model.load_state_dict(sd, strict=True)
     return model
+
+
+# --------------------------------------------------------------------------
+# JAX leaves and train states
+# --------------------------------------------------------------------------
+
+@dataclass
+class Leaf:
+    """One leaf of the JAX pytree: its path (``"blocks/b0/mix/wq"``) and
+    the port's parameters it stacks, one per group for a block leaf."""
+    path: str
+    params: List[nn.Parameter]
+    stacked: bool
+
+    def stack(self, ts: List[torch.Tensor]) -> torch.Tensor:
+        """The leaf's tensor in the JAX layout from one tensor per param."""
+        return torch.stack(ts) if self.stacked else ts[0]
+
+    def unstack(self, t: torch.Tensor) -> List[torch.Tensor]:
+        return list(t.unbind(0)) if self.stacked else [t]
+
+
+def _jax_path(port_name: str, k: int) -> Tuple[str, int]:
+    """(JAX leaf path, group) of a port parameter name."""
+    parts = port_name.split(".")
+    if parts[-1] == "weight" and parts[-2] in _NORMS:
+        parts = parts[:-1]
+    if parts[0] != "blocks":
+        return "/".join(parts), -1
+    j = int(parts[1])
+    return "/".join(["blocks", f"b{j % k}"] + parts[2:]), j // k
+
+
+def jax_leaves(model: DecoderLM) -> List[Leaf]:
+    """The port's parameters grouped by JAX leaf, in the order
+    ``jax.tree.leaves`` gives the JAX pytree (dict keys sorted at every
+    level)."""
+    k = len(block_kinds(model.cfg))
+    groups: Dict[str, Dict[int, nn.Parameter]] = {}
+    for name, p in model.named_parameters():
+        path, g = _jax_path(name, k)
+        groups.setdefault(path, {})[g] = p
+    out = []
+    for path in sorted(groups, key=lambda p: p.split("/")):
+        by_g = groups[path]
+        out.append(Leaf(path, [by_g[g] for g in sorted(by_g)],
+                        stacked=path.startswith("blocks/")))
+    return out
+
+
+def nest(flat: Mapping[str, Any]) -> Dict[str, Any]:
+    """{"a/b": x} -> {"a": {"b": x}}; values that are dicts nest too."""
+    out: Dict[str, Any] = {}
+    for path, v in flat.items():
+        *head, last = path.split("/")
+        d = out
+        for key in head:
+            d = d.setdefault(key, {})
+        d[last] = nest(v) if isinstance(v, Mapping) else v
+    return out
+
+
+def flatten_paths(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
+    """The inverse of ``nest`` down to the leaves: {"a": {"b": x}} ->
+    {"a/b": x}."""
+    out = {}
+    for key, v in tree.items():
+        path = f"{prefix}{key}"
+        if isinstance(v, Mapping):
+            out.update(flatten_paths(v, path + "/"))
+        else:
+            out[path] = v
+    return out
+
+
+def to_host(tree):
+    """Every tensor of a nested dict as a numpy array on the host."""
+    if isinstance(tree, Mapping):
+        return {key: to_host(v) for key, v in tree.items()}
+    return tree.detach().to("cpu", copy=True).numpy()
+
+
+def params_to_jax(model: DecoderLM) -> Dict[str, Any]:
+    """The JAX ``DecoderLM.init`` pytree (numpy) of the port's weights."""
+    return nest({leaf.path: to_host(leaf.stack([p.detach()
+                                                for p in leaf.params]))
+                 for leaf in jax_leaves(model)})
+
+
+def train_state_to_jax(state: Mapping[str, Any]) -> Dict[str, Any]:
+    """The port's train state ({"params": DecoderLM, "opt", "step"}) as
+    the JAX package's train state pytree of numpy arrays: params stacked
+    by group, the optimizer state nested by leaf path, int32 counters."""
+    opt = {key: nest(v) if isinstance(v, Mapping) else v
+           for key, v in to_host(state["opt"]).items()}
+    return {"params": params_to_jax(state["params"]), "opt": opt,
+            "step": to_host(state["step"])}
+
+
+def train_state_from_jax(tree: Mapping[str, Any],
+                         model: DecoderLM) -> Dict[str, Any]:
+    """A port train state from a JAX train state pytree of numpy arrays:
+    the params copied into ``model`` (on its device), the optimizer state
+    and the step as tensors on the model's device."""
+    load_jax_params(model, tree["params"])
+    dev = model.device
+    paths = {leaf.path for leaf in jax_leaves(model)}
+
+    def t(a):
+        return torch.from_numpy(np.array(a)).to(dev)
+    opt = {}
+    for key, v in tree["opt"].items():
+        if not isinstance(v, Mapping):
+            opt[key] = t(v)
+            continue
+        per_leaf = {}
+        for path, x in flatten_paths(v).items():
+            leaf_path, _, part = path.rpartition("/")
+            if path in paths:
+                per_leaf[path] = t(x)
+            elif leaf_path in paths and part in ("v", "vr", "vc"):
+                per_leaf.setdefault(leaf_path, {})[part] = t(x)
+            else:
+                raise ValueError(f"opt/{key}/{path}: no such leaf")
+        if set(per_leaf) != paths:
+            raise ValueError(f"opt/{key}: leaves {sorted(paths ^ set(per_leaf))}"
+                             " missing or extra")
+        opt[key] = per_leaf
+    return {"params": model, "opt": opt, "step": t(tree["step"])}

@@ -8,8 +8,11 @@ Caches are preallocated per sub-block and updated in place.  Other
 families raise ``NotImplementedError`` naming the ROADMAP item that brings
 them.
 
-Modes: 'train' (no cache), 'prefill' (populate caches, return last-token
-logits), 'decode' (one token, in-place cache update).
+Modes: 'train' (no cache; ``loss_fn``), 'prefill' (populate caches,
+return last-token logits), 'decode' (one token, in-place cache update).
+With ``cfg.remat`` each sub-block of a train forward that autograd records
+runs in ``torch.utils.checkpoint`` and is recomputed in the backward pass,
+as the JAX package rematerializes its scanned group body.
 """
 
 from __future__ import annotations
@@ -19,11 +22,13 @@ from typing import Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
 from ..configs.base import ArchConfig
 from .attention import Attention
-from .layers import MLP, RMSNorm, dense_init_, rms_norm, trunc_normal_
+from .layers import (MLP, RMSNorm, dense_init_, rms_norm, softmax_xent,
+                     trunc_normal_)
 from .rglru import RGLRU
 from .rwkv6 import RWKVBlock
 
@@ -134,12 +139,41 @@ class DecoderLM(nn.Module):
     # -- layers ------------------------------------------------------------
     def backbone(self, x, mode: str, caches: Optional[List[Dict]] = None,
                  pos=None):
+        remat = self.cfg.remat and mode == "train" and \
+            torch.is_grad_enabled()
         for i, blk in enumerate(self.blocks):
-            x, _ = blk(x, self.cfg, mode,
-                       caches[i] if caches is not None else None, pos)
+            if remat:
+                x = checkpoint(lambda h, blk=blk: blk(h, self.cfg, mode,
+                                                      None, pos)[0],
+                               x, use_reentrant=False)
+            else:
+                x, _ = blk(x, self.cfg, mode,
+                           caches[i] if caches is not None else None, pos)
         return x, caches
 
     # -- public entry points ------------------------------------------------
+    def loss_fn(self, batch):
+        """Train forward: batch {tokens (B,S), labels (B,S)[, loss_mask
+        (B,S)]}.  Returns (loss, metrics {"loss", "total_loss"}): the mean
+        token cross entropy with z-loss 1e-4, over the tokens the mask
+        keeps when it is given."""
+        x = self.embed_inputs(batch["tokens"])
+        pos = torch.arange(x.shape[1], device=x.device)[None, :]
+        x, _ = self.backbone(x, "train", None, pos)
+        tok_loss = softmax_xent(self.head(x), batch["labels"])
+        mask = batch.get("loss_mask")
+        if mask is None:
+            loss = tok_loss.mean()
+        else:
+            loss = (tok_loss * mask).sum() / torch.clamp(mask.sum(), min=1)
+        return loss, {"loss": loss, "total_loss": loss}
+
+    def forward(self, batch):
+        """``loss_fn``: what ``torch.func.functional_call`` runs when the
+        train step computes with other tensors in place of the parameters
+        (its bf16 copies)."""
+        return self.loss_fn(batch)
+
     def init_cache(self, B: int, cache_len: int) -> List[Dict]:
         """Zero caches, one dict per sub-block, updated in place by prefill
         and decode: attention {"k", "v", "len"[, "k_scale", "v_scale"]}

@@ -125,19 +125,27 @@ def star_dag(core, ops, po, pc, name, trace, how="left"):
 
 
 #: the budget that makes these DAGs evict.  Rollback under a schedule that
-#: interleaves DAGs (breadth, fair) re-runs evicted nodes whose consumers
-#: are evicted in turn, and never finishes at it, in both packages
-#: (ROADMAP.md queue 3, item o): those two run under a budget that fits.
+#: interleaves DAGs (breadth, fair) evicts one chain's loader for the
+#: other's and re-runs it, forever, in the JAX package (ROADMAP.md queue 3,
+#: item o).  The port's progress guard (``EvictionPolicy.pinned``) ends
+#: it, so those two pairs run at this budget in the port alone, under a
+#: time limit, and are held to the depth schedule's outputs; both
+#: packages still run them side by side under a budget that fits.
 LIMIT = 3 << 15
+FITS = 1 << 20
 LIVELOCKS = {("rollback", "breadth"), ("rollback", "fair")}
+LIVELOCK_S = 60.0
 
 
-def sched_case(core, ops, zq, d, policy, schedule):
+def sched_case(core, ops, zq, d, policy, schedule, limit=None,
+               deadline_s=3600.0):
     paths, po, pc = write_sources(zq, core, d, 2)
     store = core.BufferStore(swap_dir=str(d / "swap"))
+    if limit is None:
+        limit = FITS if (policy, schedule) in LIVELOCKS else LIMIT
     rm = core.ResourceManager(store, core.RMConfig(
-        memory_limit=LIMIT if (policy, schedule) not in LIVELOCKS
-        else 1 << 20, policy=policy, schedule=schedule, decache=False))
+        memory_limit=limit, policy=policy, schedule=schedule,
+        decache=False))
     ex = core.Executor(store, rm, workers=1)
     trace = []
     try:
@@ -145,7 +153,7 @@ def sched_case(core, ops, zq, d, policy, schedule):
                 for i, p in enumerate(paths)]
         dags.append(star_dag(core, ops, po, pc, "star", trace))
         dags[-1].deadline = 1.0                  # urgent under "deadline"
-        ex.run(dags)
+        ex.run(dags, deadline_s=deadline_s)
         outs = {}
         for g in dags:
             for n, st in g.nodes.items():
@@ -178,6 +186,21 @@ def test_schedule_and_eviction_match_reference(tmp_path, policy, schedule):
     if policy in ("rollback", "limitdrop") and (policy,
                                                  schedule) not in LIVELOCKS:
         assert got["repro"]["evictions"][policy] > 0
+    if (policy, schedule) in LIVELOCKS:
+        # at the tight budget, in the port alone (the JAX package never
+        # finishes there): the run ends within the time limit (the
+        # executor raises TimeoutError past it), rolls back, and computes
+        # what the depth schedule computes in both packages
+        d = tmp_path / "tight"
+        d.mkdir()
+        tight = sched_case(tcore, t_ops, t_zq, d, policy, schedule,
+                           limit=LIMIT, deadline_s=LIVELOCK_S)
+        assert tight["evictions"]["rollback"] > 0
+        for name, (core, ops, zq) in PKGS.items():
+            d = tmp_path / f"depth-{name}"
+            d.mkdir()
+            depth = sched_case(core, ops, zq, d, policy, "depth")
+            same(tight["outs"], depth["outs"], f"{name} depth vs {schedule}")
 
 
 # --------------------------------------------------------------------------
