@@ -141,7 +141,7 @@
     model path (attention trains through ``chunked_attention``).  Median
     step time, tokens per second, peak memory, and a profiled step.
 16. The card against the CPU: the same full-width model in float32 (TF32
-    off), B 1 x S 128, from the same weights (drawn by a CPU generator):
+    off), B 1 x S 128, from the same weights (drawn on the card, copied):
     step 0's grads per leaf within 1e-5 relative L2, the loss and grad
     norm of two steps within 1e-4.
 17. Checkpoints: phase 15's train state saved through ``CheckpointStore``
@@ -151,7 +151,43 @@
     as a user runs it, with ``TMPDIR`` set to a fresh directory (it makes
     its own corpus), and again with ``--resume --steps 10``, which must
     resume from step 50; every loss finite.
-18. A JSON line per kernel, then ``{"ok": true, "device": ...}`` as the
+18. Train rwkv6-3b at full width and depth (32 layers, 3.07 B
+    parameters; run right after phase 17, as 19 and 21 are): float32
+    masters, bf16 compute, remat, AdamW, 10 steps of B 4 x S 1024 (peak lr
+    1e-3, warmup 3) on batches of ``ZerrowDataPipeline`` over one of phase
+    14's shards, its metadata join on the card.  The launch counts, set to
+    0 just before the pipeline and read after the last step, must be one
+    shard's join and no model kernel (train mode runs the chunked WKV-6
+    form in plain PyTorch).  Losses and grad norms finite, the mean of the
+    last 3 losses below step 0's; median step, tokens per second, peak
+    memory and a profiled step (device activity only).  Then phase 16's
+    float32 card-against-CPU step at full width and 2 layers.
+19. Train recurrentgemma-9b at full width, one group of (rec, rec, attn)
+    (2.69 B parameters with the untied embedding and head), B 1 x S 4096
+    (the 2048 window cuts train attention), as phase 18; the
+    card-against-CPU step at that depth.
+20. Serve qwen3-moe-30b-a3b at full width and 16 of its 48 layers (10.6
+    B parameters, 42.4 GB of float32 weights; run right after phase 9):
+    phase 8's traffic, 16 flash launches a prefill at hd 128 with 32 query
+    and 4 KV heads; each prefill's ``moe_dropped`` printed.  Round 0's
+    prefill through the kernel against chunked attention, in bf16 and
+    float32, with the routing of every layer recorded in both: the
+    token-layers routed differently are counted and printed, and the
+    last-token logits held for the sequences routed alike (in float32 more
+    than 1 % of flipped token-layers, or no sequence routed alike, fails);
+    every flash launch of one more prefill held to its plain version on
+    its own inputs; decode after S tokens against a prefill of S + 1 in
+    float32 with capacity factor n_experts / top_k, so that no pair drops
+    (decode's T = B tokens have capacity 1 at the served 1.25).  A profiled
+    warm round.  Then flash timed at that prefill shape (B 8, S = T 512,
+    H 32, KV 4, hd 128) as in phase 3.
+21. Train qwen3-moe-30b-a3b at full width and 4 layers (3.11 B
+    parameters), B 2 x S 1024, as phase 18, with the MoE metrics of each
+    step printed and finite; in the card-against-CPU step at 2 layers the
+    routing of each forward is compared first: where it agrees the grads
+    are held to 1e-5 per leaf, where it differs the loss to 1e-3, and more
+    than 1 % of token-layers routed differently fails.
+22. A JSON line per kernel, then ``{"ok": true, "device": ...}`` as the
     last line.
 
 Every check that fails exits non-zero before the last line is printed.
@@ -195,6 +231,7 @@ from repro_torch.core.plan import compiler as plan_compiler  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
     build, flash_attention, ops, ref, relational, take_gather, wkv6)
 from repro_torch.models import attention  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.api import ModelAPI  # noqa: E402
 from repro_torch.data.pipeline import (  # noqa: E402
     PipelineConfig, ZerrowDataPipeline, join_filter_fn, make_doc_meta,
@@ -215,6 +252,8 @@ BF16_FLOP_PER_S = 989e12
 F32_FLOP_PER_S = 67e12          # float32 outside the tensor cores
 
 SERVE_SHAPE = dict(B=8, S=512, T=512, H=9, KV=3, hd=64)
+# qwen3-moe-30b-a3b's served prefill: 32 query and 4 KV heads of 128
+MOE_SHAPE = dict(B=8, S=512, T=512, H=32, KV=4, hd=128)
 # bf16: the plain version computes in f32 and rounds once to bf16; the
 # tensor-core kernel also rounds P to bf16 before the P V product (the
 # JAX model's chunked_attention does the same).  Each p moves by at most
@@ -488,6 +527,9 @@ def phase_kernel_vs_plain():
         ("hd 128", dict(sv, H=8, KV=2, hd=128), torch.bfloat16, True, 0),
         ("hd 128 f32 window 64", dict(sv, H=8, KV=2, hd=128),
          torch.float32, True, 64),
+        ("hd 128 GQA 32/4 (qwen3-moe prefill)", MOE_SHAPE, torch.bfloat16,
+         True, 0),
+        ("hd 128 GQA 32/4 f32", MOE_SHAPE, torch.float32, True, 0),
         # the bf16 kernel's tile edges (BQ 64, BK 64 or 32 at hd 256)
         ("ragged cross S 100 T 130", dict(sv, B=2, S=100, T=130, H=4, KV=2),
          torch.bfloat16, True, 0),
@@ -529,11 +571,13 @@ def phase_kernel_vs_plain():
               f"{'ok' if ok else 'MISMATCH'}")
         check(ok, f"flash_attention vs attention_ref [{name}]")
         errs[name] = err
-    return errs["serving bf16 causal"]
+    return errs["serving bf16 causal"], \
+        errs["hd 128 GQA 32/4 (qwen3-moe prefill)"]
 
 
-def phase_times():
-    sv = SERVE_SHAPE
+def phase_times(sv=SERVE_SHAPE):
+    """Flash at a served prefill shape (smollm-135m's by default): kernel,
+    plain version and sdpa from CUDA-graph replays, beside the bound."""
     q, k, v = attn_inputs(100, dtype=torch.bfloat16, **sv)
     B, S, T, H, KV, hd = (sv[n] for n in ("B", "S", "T", "H", "KV", "hd"))
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
@@ -557,7 +601,7 @@ def phase_times():
           f"{spread(kern)}, plain {spread(plain)}, library (sdpa) "
           f"{spread(lib)} (max_abs_err vs plain {lib_err!r}); bound "
           f"{bound_ms!r} ms by {bound_by} ({nbytes} bytes, {flops:.0f} "
-          f"flop); kernel at {bound_ms / ms:.4f} of the bound")
+          f"flop); kernel at {bound_ms / ms:.4f} of the bound [{smi_line()}]")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=lib_ms)
 
@@ -621,15 +665,17 @@ OWN_KERNEL_RE = re.compile(r"\b(flash_fwd_kernel|flash_fwd_bf16_kernel"
                            r"|rglru_scan_kernel)\b")
 
 
-def profile_run(fn, label: str, top: int = 6) -> dict:
+def profile_run(fn, label: str, top: int = 6, cpu: bool = True) -> dict:
     """Run ``fn`` once under torch.profiler and print the device's busy
     share of the wall time (union of CUDA kernel and copy intervals), the
     part of it spent copying, the largest entries by device time, and the
     time and busy share of each of the port's model kernels.  The profiler
-    adds host time, so the idle share it gives is an upper bound."""
+    adds host time, so the idle share it gives is an upper bound.  With
+    ``cpu`` False only the device's activity is traced (a step of a few
+    hundred thousand host ops)."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         fn()
         sync()
@@ -2213,6 +2259,10 @@ TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_WARMUP, TRAIN_LR = 8, 1024, 30, 10, 1e-3
 # leaf by a few 1e-6 of its norm at most), the loss and grad norm of two
 # steps by relative error
 GRAD_TOL, STEP_TOL = 1e-5, 1e-4
+# a step whose MoE routing differs between the devices: its loss within
+# FLIP_LOSS_TOL; more than FLIP_MAX of the token-layers routed differently
+# fails
+FLIP_LOSS_TOL, FLIP_MAX = 1e-3, 0.01
 
 
 def batch_digest(b) -> bytes:
@@ -2341,7 +2391,7 @@ def phase_pipeline(root: str):
           "train pipeline: the kept share of tokens is not about keep_frac")
     return {"train pipeline": runs["cuda, threads"][4],
             "train pipeline, processes": proc_worker}, \
-        runs["cuda, threads"][1]
+        runs["cuda, threads"][1], (shards, meta, per_shard)
 
 
 def to_device(b, dev):
@@ -2396,42 +2446,173 @@ def phase_train(batches):
     return api, state
 
 
-def phase_train_vs_cpu(batches) -> None:
-    """Phase 16: the full-width model in float32 on the card and on the
-    CPU from the same weights (drawn by a CPU generator): step 0's grads
-    per leaf, then the loss and grad norm of two train steps."""
-    cfg = dataclasses.replace(get_arch("smollm-135m"), dtype="float32")
+@contextlib.contextmanager
+def recording_routes():
+    """A list that collects each MoE router call's chosen experts (gate_e,
+    (T, k), copied to the host) while the block runs."""
+    log, real = [], moe_mod.route
+
+    def route(p, xt, cfg):
+        out = real(p, xt, cfg)
+        log.append(out[3].detach().to("cpu", copy=True))
+        return out
+    with mock.patch.object(moe_mod, "route", route):
+        yield log
+
+
+def route_flips(a, b):
+    """Token-layers whose expert sets differ between two runs' gate_e
+    lists (layer by layer, (T, k) each): (count, per token (T,) bool)."""
+    n, per_token = 0, None
+    for x, y in zip(a, b):
+        d = (x.sort(1).values != y.sort(1).values).any(1)
+        n += int(d.sum())
+        per_token = d if per_token is None else per_token | d
+    return n, per_token
+
+
+def float64_grads(api, batch) -> list:
+    """Step 0's grads of ``api``'s model (on the CPU) computed in float64
+    throughout: a float64 copy of its weights, and every ``.float()`` of
+    the model's own float32 steps (norms, recurrences, loss) giving
+    float64; the grads in the order of ``jax_leaves``."""
+    cfg = dataclasses.replace(api.cfg, dtype="float64",
+                              param_dtype="float64")
+    twin = ModelAPI(cfg, device="cpu")
+    twin.model.load_state_dict(api.model.state_dict())
+    for p in twin.model.parameters():
+        p.data = p.data.double()
+
+    def f64(t, *a, **k):
+        return t if t.dtype == torch.float64 else t.double()
+    with mock.patch.object(torch.Tensor, "float", f64):
+        loss, _ = twin.train_loss(to_device(batch, "cpu"))
+        params = [p for leaf in jax_leaves(twin.model) for p in leaf.params]
+        return list(torch.autograd.grad(loss, params))
+
+
+def phase_train_vs_cpu(batches, cfg=None, what: str = "train",
+                       floor: bool = False) -> None:
+    """Phases 16, 18, 19 and 21: the model (smollm-135m at full width
+    unless ``cfg`` is given) in float32 on the card and on the CPU from the
+    same weights (drawn on the card, copied to the CPU): step 0's grads
+    per leaf, then the loss and grad norm of two train steps.
+
+    For the moe family a top-k decided on probabilities a few 1e-7 apart
+    can flip between the devices, and a flip changes that token's output
+    and, through attention, the later tokens'.  So each forward's routing
+    is recorded on both devices and compared first: where it agrees
+    everywhere the grads are held to ``GRAD_TOL`` and a step's loss and
+    grad norm to ``STEP_TOL``; where it differs, the differing
+    token-layers are printed and the loss is held to ``FLIP_LOSS_TOL``; a
+    flip count above ``FLIP_MAX`` of the token-layers fails.
+
+    With ``floor`` (rwkv6-3b) the grads are also computed in float64 on
+    the CPU: the chunked WKV-6 form's float32 grads of r, k and the token
+    mix stand a few 1e-5 from float64 on either device, above
+    ``GRAD_TOL``, so each leaf's grads on the card are held to float64
+    within the larger of ``GRAD_TOL`` and twice the CPU's float32
+    distance, as phase 8 bounds rwkv6-3b's float32 logits by its noise
+    floor; the card against the CPU is printed."""
+    cfg = dataclasses.replace(cfg or get_arch("smollm-135m"), dtype="float32")
     b = [{k: v[:1, :128].copy() for k, v in x.items()} for x in batches[:2]]
-    apis, grads, metrics = {}, {}, {}
-    for name, dev in (("cpu", "cpu"), ("cuda", CUDA)):
-        api = ModelAPI(cfg, device=dev)
-        api.model.init(torch.Generator().manual_seed(0))
-        loss, _ = api.train_loss(to_device(b[0], dev))
-        leaves = jax_leaves(api.model)
-        params = [p for leaf in leaves for p in leaf.params]
-        g = dict(zip(params, torch.autograd.grad(loss, params)))
-        grads[name] = {leaf.path: leaf.stack([g[p] for p in leaf.params])
-                       .double().cpu() for leaf in leaves}
+    t0 = time.perf_counter()
+    apis = {"cpu": ModelAPI(cfg, device="cpu"),
+            "cuda": ModelAPI(cfg, device=CUDA)}
+    apis["cuda"].model.init(torch.Generator(device=CUDA).manual_seed(0))
+    apis["cpu"].model.load_state_dict(apis["cuda"].model.state_dict())
+    secs = {"weights": time.perf_counter() - t0}
+    n_moe = len(apis["cpu"].model.blocks) if cfg.n_experts else 0
+    routes, losses, grads = {}, {}, {}
+    for name, api in apis.items():
+        t1 = time.perf_counter()
+        with recording_routes() as log:
+            loss, _ = api.train_loss(to_device(b[0], api.device))
+        routes[name] = [log[:n_moe]]
+        losses[name] = loss.item()
+        params = [p for leaf in jax_leaves(api.model) for p in leaf.params]
+        grads[name] = list(torch.autograd.grad(loss, params))
+        del loss
+        secs[f"grads {name}"] = time.perf_counter() - t1
+    if floor:
+        grads["float64"] = float64_grads(apis["cpu"], b[0])
+    # relative L2 per JAX leaf, from its per-layer pieces
+    paths = [leaf.path for leaf in jax_leaves(apis["cpu"].model)]
+    sizes = [len(leaf.params) for leaf in jax_leaves(apis["cpu"].model)]
+
+    def per_leaf(x, y):
+        out, i = {}, 0
+        for path, n in zip(paths, sizes):
+            num = den = 0.0
+            for a, c in zip(grads[x][i:i + n], grads[y][i:i + n]):
+                # y's dtype: float32 differences of near values are exact
+                num += (a.to("cpu", c.dtype) - c).norm().item() ** 2
+                den += c.norm().item() ** 2
+            out[path] = (num / max(den, 1e-300)) ** 0.5
+            i += n
+        return out
+    rels = {("cuda", "cpu"): per_leaf("cuda", "cpu")}
+    if floor:
+        rels["cpu", "float64"] = per_leaf("cpu", "float64")
+        rels["cuda", "float64"] = per_leaf("cuda", "float64")
+    for (x, y), r in rels.items():
+        top = sorted(r.items(), key=lambda kv: -kv[1])[:4]
+        print(f"{what}, step 0's grads, {x} vs {y}, relative L2, the worst "
+              f"leaves: " + ", ".join(f"{p} {v!r}" for p, v in top))
+    worst = max(rels["cuda", "cpu"].values())
+    del grads
+    metrics = {}
+    for name, api in apis.items():
+        t1 = time.perf_counter()
         state = init_state(api)
         step = make_train_step(api, peak_lr=TRAIN_LR, warmup=1,
                                total_steps=10)
         ms = []
         for x in b:
-            state, m = step(state, to_device(x, dev))
+            with recording_routes() as log:
+                state, m = step(state, to_device(x, api.device))
+            routes[name].append(log[:n_moe])
             ms.append((float(m["loss"]), float(m["grad_norm"])))
         metrics[name] = ms
-        apis[name] = api
-    worst = max(((a - c).norm() / c.norm()).item() for a, c in zip(
-        grads["cuda"].values(), grads["cpu"].values()))
-    print(f"train, card vs cpu (float32, B 1 x S 128): step 0's grads, "
-          f"worst relative L2 over {len(grads['cpu'])} leaves {worst!r} "
-          f"(tol {GRAD_TOL}); (loss, grad norm) of two steps cuda "
-          f"{metrics['cuda']} cpu {metrics['cpu']}")
-    check(worst <= GRAD_TOL, "train, card vs cpu: step 0's grads")
-    for (l1, g1), (l0, g0) in zip(metrics["cuda"], metrics["cpu"]):
-        check(abs(l1 - l0) <= STEP_TOL * abs(l0)
-              and abs(g1 - g0) <= STEP_TOL * abs(g0),
-              "train, card vs cpu: loss or grad norm of a step")
+        del state, step
+        secs[f"two steps {name}"] = time.perf_counter() - t1
+    print(f"{what}, card vs cpu: seconds {secs}")
+    flips = [route_flips(x, y)[0]
+             for x, y in zip(routes["cuda"], routes["cpu"])]
+    total = n_moe * b[0]["tokens"].size
+    print(f"{what}, card vs cpu ({cfg.name}, {len(apis['cpu'].model.blocks)}"
+          f" sub-blocks, float32, B 1 x S 128; {time.perf_counter() - t0:.1f}"
+          f" s): step 0's grads, worst relative L2 over {len(sizes)} leaves "
+          f"{worst!r} (tol {GRAD_TOL}); loss cuda {losses['cuda']!r} cpu "
+          f"{losses['cpu']!r}; (loss, grad norm) of two steps cuda "
+          f"{metrics['cuda']} cpu {metrics['cpu']}" + (
+              f"; token-layers routed differently in the loss forward and "
+              f"the two steps: {flips} of {total} each" if n_moe else ""))
+    check(all(f <= FLIP_MAX * total for f in flips),
+          f"{what}, card vs cpu: routing flips {flips} above {FLIP_MAX} of "
+          f"{total} token-layers")
+    if floor:
+        bad = [(p, r, rels["cpu", "float64"][p])
+               for p, r in rels["cuda", "float64"].items()
+               if r > max(GRAD_TOL, 2 * rels["cpu", "float64"][p])]
+        check(not bad, f"{what}: step 0's grads on the card farther from "
+              f"float64 than max({GRAD_TOL}, twice the CPU's float32 "
+              f"distance): {bad}")
+    elif flips[0] == 0:
+        check(worst <= GRAD_TOL, f"{what}, card vs cpu: step 0's grads")
+    check(abs(losses["cuda"] - losses["cpu"]) <= (
+        STEP_TOL if flips[0] == 0 else FLIP_LOSS_TOL) * abs(losses["cpu"]),
+        f"{what}, card vs cpu: the loss of step 0's forward")
+    for f, (l1, g1), (l0, g0) in zip(flips[1:], metrics["cuda"],
+                                     metrics["cpu"]):
+        if f == 0:
+            check(abs(l1 - l0) <= STEP_TOL * abs(l0)
+                  and abs(g1 - g0) <= STEP_TOL * abs(g0),
+                  f"{what}, card vs cpu: loss or grad norm of a step")
+        else:
+            check(abs(l1 - l0) <= FLIP_LOSS_TOL * abs(l0),
+                  f"{what}, card vs cpu: the loss of a step with routing "
+                  "flips")
     # Parameters are not compared element by element after an update: Adam's
     # first step moves each weight by about lr * sign(g), so a near-zero
     # gradient that rounds to the other sign on one device moves that
@@ -2507,47 +2688,301 @@ def phase_checkpoint(root: str, state) -> None:
           "launcher --resume did not resume from step 50")
 
 
+# --------------------------------------------------------------------------
+# training rwkv6-3b, recurrentgemma-9b and qwen3-moe-30b-a3b; serving the
+# MoE
+# --------------------------------------------------------------------------
+
+# (n_layers, B, S, n_layers of the float32 card-against-CPU step); None
+# keeps the published depth.  At 18 bytes a parameter (float32 master and
+# grad, AdamW's mu and nu, the bf16 casts) one card holds rwkv6-3b whole
+# (55.3 GB), recurrentgemma-9b as one group of (rec, rec, attn) with its
+# untied embedding and head (2.69 B parameters, 48.4 GB) and
+# qwen3-moe-30b-a3b at 4 of 48 layers (3.11 B, 56 GB); every width is the
+# published one (PERF.md section 4)
+BIG_TRAIN = {"rwkv6-3b": (None, 4, 1024, 2),
+             "recurrentgemma-9b": (3, 1, 4096, 3),
+             "qwen3-moe-30b-a3b": (4, 2, 1024, 2)}
+BIG_STEPS, BIG_WARMUP = 10, 3
+# serving qwen3-moe-30b-a3b: 16 of 48 layers, 42.4 GB of float32 masters
+MOE_SERVE_LAYERS = 16
+MODEL_KERNELS = ("flash_attention", "wkv6", "rglru_scan")
+
+
+def big_cfg(name: str, n_layers):
+    cfg = get_arch(name)
+    return cfg if n_layers is None else dataclasses.replace(
+        cfg, n_layers=n_layers)
+
+
+def pipeline_batches(corpus, B: int, S: int, n: int):
+    """One epoch of ZerrowDataPipeline over the corpus's first shard at
+    B x S, its metadata join on the card: (the first n batches, the
+    number of batches)."""
+    shards, meta, _ = corpus
+    pipe = ZerrowDataPipeline(shards[:1], PipelineConfig(
+        batch=B, seq_len=S, workers=4, workers_mode="thread",
+        meta_path=meta))
+    first, count = [], 0
+    try:
+        with kdispatch.using_device("cuda"):
+            for b in pipe.batches():
+                count += 1
+                if len(first) < n:
+                    first.append(b)
+    finally:
+        pipe.close()
+    return first, count
+
+
+def phase_train_big(name: str, corpus) -> dict:
+    """Phases 18, 19 and 21: ``name`` at full width (depth as in
+    ``BIG_TRAIN``), float32 masters, bf16 compute, remat, AdamW, 10 steps
+    on the pipeline's batches; then the float32 card-against-CPU step.
+    Returns the launches of the run (the pipeline's join)."""
+    n_layers, B, S, cpu_layers = BIG_TRAIN[name]
+    cfg = big_cfg(name, n_layers)
+    t0 = time.perf_counter()
+    api = ModelAPI(cfg, device=CUDA)
+    state = init_state(api, torch.Generator(device=CUDA).manual_seed(0))
+    step = make_train_step(api, peak_lr=TRAIN_LR, warmup=BIG_WARMUP,
+                           total_steps=BIG_STEPS)
+    sync()
+    n = sum(p.numel() for p in api.model.parameters())
+    print(f"train {cfg.name}: {len(api.model.blocks)} sub-blocks "
+          f"{api.model.kinds} x {api.model.groups}, d_model {cfg.d_model}, "
+          f"vocab {cfg.vocab}, {n} float32 parameters, {cfg.dtype} compute, "
+          f"remat {cfg.remat}, {cfg.optimizer}; B {B} x S {S}, peak lr "
+          f"{TRAIN_LR}, warmup {BIG_WARMUP}; state made on the card in "
+          f"{time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated")
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    batches, n_batches = pipeline_batches(corpus, B, S, BIG_STEPS + 1)
+    t_pipe = time.perf_counter() - t0
+    losses, norms, times, aux = [], [], [], []
+    for b in batches[:BIG_STEPS]:
+        t0 = time.perf_counter()
+        state, m = step(state, to_device(b, CUDA))
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        sync()
+        times.append(time.perf_counter() - t0)
+        aux.append({k: float(m[k]) for k in moe_mod.AUX_KEYS if k in m})
+    launches = dict(ops.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    med = statistics.median(times[1:])
+    _, _, per_shard = corpus
+    print(f"train {cfg.name}: the pipeline gave {n_batches} batches of {B} x "
+          f"{S} from one shard in {t_pipe:.2f} s; launches of the run "
+          f"{launches} (one shard's join: {per_shard})")
+    print(f"train {cfg.name}: losses {[round(x, 4) for x in losses]}")
+    print(f"train {cfg.name}: grad norms {[round(x, 4) for x in norms]}")
+    if cfg.n_experts:
+        print(f"train {cfg.name}: MoE metrics a step (means over the "
+              f"layers) {aux}")
+        check(all(np.isfinite(v) for a in aux for v in a.values()),
+              f"train {cfg.name}: an MoE metric is not finite")
+    print(f"train {cfg.name}: {BIG_STEPS} steps; step 0 "
+          f"{times[0] * 1e3:.1f} ms, median of steps 1-{BIG_STEPS - 1} "
+          f"{med * 1e3:.2f} ms (min {min(times[1:]) * 1e3:.2f}, max "
+          f"{max(times[1:]) * 1e3:.2f}), {B * S / med:.0f} tokens/s; max "
+          f"memory allocated {peak / 2**30:.3f} GiB ({peak} bytes) "
+          f"[{smi_line()}]")
+    check(all(np.isfinite(losses)) and all(np.isfinite(norms)),
+          f"train {cfg.name}: a loss or grad norm is not finite")
+    check(float(np.mean(losses[-3:])) < losses[0],
+          f"train {cfg.name}: the loss did not fall ({losses[0]} -> mean of "
+          f"the last 3 {np.mean(losses[-3:])})")
+    check(launches == dict(dict.fromkeys(ops.launch_counts, 0), **per_shard),
+          f"train {cfg.name}: launches {launches} != one shard's join "
+          f"{per_shard} and no model kernel (train mode runs the plain "
+          "counterparts)")
+    profile_run(lambda: step(state, to_device(batches[BIG_STEPS], CUDA)),
+                f"one {cfg.name} train step (B {B} x S {S})", top=10,
+                cpu=False)
+    del api, state, step
+    torch.cuda.empty_cache()
+    phase_train_vs_cpu(batches, big_cfg(name, cpu_layers),
+                       f"train {cfg.name}", floor=cfg.family == "ssm")
+    torch.cuda.empty_cache()
+    return launches
+
+
+@contextlib.contextmanager
+def capacity_factor(api, cf: float):
+    """The model's MoE capacity factor set to ``cf`` for the block."""
+    old = api.model.cfg
+    api.model.cfg = dataclasses.replace(old, capacity_factor=cf)
+    try:
+        yield
+    finally:
+        api.model.cfg = old
+
+
+def moe_prefill_vs_plain(api, tokens, shape, what: str) -> None:
+    """Prefill through the flash kernel against prefill with attention
+    forced to ``chunked_attention``, in bf16 and float32 compute, each
+    with the routing of every layer recorded.  A top-k over 128 experts
+    decided on probabilities that the two attention paths move by about
+    1e-6 flips now and then, and a flipped token's output moves, and with
+    it the later tokens' through attention: so the token-layers routed
+    differently are counted and printed, and the last-token logits are
+    held (``LOGIT_TOL``) for the sequences routed alike everywhere.  In
+    float32 more than ``FLIP_MAX`` of the token-layers routed differently,
+    or no sequence routed alike, fails."""
+    B = tokens.shape[0]
+    for dtype in (torch.bfloat16, torch.float32):
+        with compute_dtype(api, dtype):
+            with recording_routes() as rk:
+                logits, _ = api.prefill({"tokens": tokens}, shape)
+            with recording_routes() as rp, mock.patch.object(
+                    attention, "_attend", plain_attend):
+                plain, _ = api.prefill({"tokens": tokens}, shape)
+        sync()
+        n, per_token = route_flips(rk, rp)
+        alike = ~per_token.view(B, -1).any(1)
+        total = len(rk) * per_token.numel()
+        label = f"{what} prefill, {str(dtype)[6:]} compute"
+        print(f"{label}: token-layers routed differently by the kernel and "
+              f"the plain path {n} of {total} ({n / total:.2e}); sequences "
+              f"routed alike in every layer {int(alike.sum())}/{B}")
+        check(bool(torch.isfinite(logits).all()
+                   and torch.isfinite(plain).all()),
+              f"{label}: non-finite logits")
+        if dtype == torch.float32:
+            check(n <= FLIP_MAX * total and bool(alike.any()),
+                  f"{label}: routing flips {n} of {total}")
+        if alike.any():
+            compare_logits(logits[alike], plain[alike], LOGIT_TOL[dtype],
+                           f"{label}, kernel vs chunked_attention, the "
+                           "sequences routed alike")
+
+
+def phase_serve_moe():
+    """Phase 20: qwen3-moe-30b-a3b at full width and 16 of its 48 layers,
+    served as phase 4 serves smollm-135m; flash at hd 128 with 32 query
+    and 4 KV heads."""
+    cfg = dataclasses.replace(get_arch("qwen3-moe-30b-a3b"),
+                              n_layers=MOE_SERVE_LAYERS)
+    t0 = time.perf_counter()
+    api = ModelAPI(cfg, device=CUDA)
+    api.model.init(torch.Generator(device=CUDA).manual_seed(0))
+    sync()
+    n = sum(p.numel() for p in api.model.parameters())
+    print(f"serve: {cfg.name} {len(api.model.blocks)} of 48 layers, d_model "
+          f"{cfg.d_model}, {cfg.n_experts} experts top {cfg.top_k} (d_ff "
+          f"{cfg.d_ff}), capacity factor {cfg.capacity_factor}, {n} "
+          f"parameters in float32, drawn on the card in "
+          f"{time.perf_counter() - t0:.1f} s; device memory allocated "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    batch, max_seq, max_new = 8, 1024, 32
+    rng = np.random.default_rng(3)
+    rounds = [prompts(rng, cfg, batch, 256, 512, max_new) for _ in range(2)]
+    engine = ServeEngine(api, batch=batch, max_seq=max_seq)
+    dropped, real = [], moe_mod.moe_apply
+
+    def moe_apply(p, x, c):
+        out, aux = real(p, x, c)
+        dropped.append((x.shape[1], aux["moe_dropped"]))
+        return out, aux
+    with mock.patch.object(moe_mod, "moe_apply", moe_apply):
+        ops.reset_launch_counts()
+        outs = run_rounds(engine, rounds, cfg.name)
+        launches = dict(ops.launch_counts)
+    print(f"{cfg.name} launch counts over 2 prefills: {launches}")
+    check(launches == dict(dict.fromkeys(launches, 0),
+                           flash_attention=cfg.n_layers * 2),
+          f"{cfg.name}: launches {launches} != flash_attention "
+          f"{cfg.n_layers} x 2")
+    pre = [float(d) for s, d in dropped if s > 1]
+    dec = [float(d) for s, d in dropped if s == 1]
+    L = cfg.n_layers
+    print(f"{cfg.name}: moe_dropped of each prefill, mean over its {L} "
+          f"layers: {[sum(pre[i:i + L]) / L for i in range(0, len(pre), L)]}"
+          f"; of the decode steps (T = B = {batch}, capacity 1): mean "
+          f"{sum(dec) / len(dec)!r}")
+    check_tokens(outs, 2 * batch * max_new, cfg.vocab, cfg.name)
+    padded = torch.from_numpy(pad_prompts(rounds[0], batch)).to(CUDA)
+    moe_prefill_vs_plain(api, padded, engine.shape, cfg.name)
+    each_launch_vs_plain(api, padded, engine.shape,
+                         [("flash_attention", ref.attention_ref, TOL)],
+                         cfg.name)
+    # no pair can drop when C >= T: capacity_factor = n_experts / top_k
+    cf = cfg.n_experts / cfg.top_k
+    with capacity_factor(api, cf):
+        decode_vs_prefill(api, padded, engine.shape,
+                          f"{cfg.name} (capacity factor {cf}: no pair "
+                          "dropped)")
+    profile_run(lambda: engine.run_batch(rounds[1]),
+                f"one warm {cfg.name} round")
+    del api, engine
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAILED: torch.cuda.is_available() is False: chip_smoke.py "
               "needs a CUDA card", flush=True)
         return 1
-    phase_device()
-    insts = phase_build()
-    max_err = phase_kernel_vs_plain()
-    times = phase_times()
-    launches = phase_serve()
-    rel_err = phase_relational_vs_plain()
-    rel_times = phase_relational_times()
+    t_start = time.perf_counter()
+
+    def timed(label, fn, *args):
+        """``fn(*args)``, and the seconds it took beside the script's."""
+        t = time.perf_counter()
+        out = fn(*args)
+        now = time.perf_counter()
+        print(f"[{label}: {now - t:.1f} s; the script at {now - t_start:.1f}"
+              " s]", flush=True)
+        return out
+    timed("phase 1", phase_device)
+    insts = timed("phase 2", phase_build)
+    max_err, hd128_err = timed("phase 3", phase_kernel_vs_plain)
+    times = timed("phase 3 times", phase_times)
+    launches = timed("phase 4", phase_serve)
+    rel_err = timed("phase 5", phase_relational_vs_plain)
+    rel_times = timed("phase 5 times", phase_relational_times)
     t0 = time.perf_counter()
     orders, customers = star_tables()
     print(f"star tables at SF{SF}: orders {orders.num_rows} rows, customers "
           f"{customers.num_rows} rows, made in "
           f"{time.perf_counter() - t0:.1f} s")
-    rel_launches, group_bys = phase_star(orders, customers)
-    zerrow_launches = phase_zerrow_star(orders, customers, group_bys)
+    rel_launches, group_bys = timed("phase 6", phase_star, orders, customers)
+    zerrow_launches = timed("phases 11-12", phase_zerrow_star, orders,
+                            customers, group_bys)
     del orders, customers, group_bys
-    prompt_flash = phase_zerrow_prompts()
+    prompt_flash = timed("phase 13", phase_zerrow_prompts)
     root = tempfile.mkdtemp(prefix="zerrow-train-")
     try:
-        train_paths, train_batches = phase_pipeline(root)
-        train_api, train_state = phase_train(train_batches)
-        phase_train_vs_cpu(train_batches)
-        phase_checkpoint(root, train_state)
+        train_paths, train_batches, corpus = timed("phase 14",
+                                                   phase_pipeline, root)
+        train_api, train_state = timed("phase 15", phase_train,
+                                       train_batches)
+        timed("phase 16", phase_train_vs_cpu, train_batches)
+        timed("phase 17", phase_checkpoint, root, train_state)
         del train_api, train_state, train_batches
         torch.cuda.empty_cache()
+        for n, name in zip((18, 19, 21), BIG_TRAIN):
+            train_paths[f"train {name}"] = timed(f"phase {n}",
+                                                 phase_train_big, name,
+                                                 corpus)
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    rec_err = phase_recurrent_vs_plain()
-    rec_times = phase_recurrent_times()
-    gather_err, gather_launches = phase_gather_vs_plain()
-    phase_grad_guard()
-    gather_times = phase_gather_times()
-    rwkv_launches = phase_serve_rwkv()
-    rgemma_launches = phase_serve_rgemma()
+    rec_err = timed("phase 7", phase_recurrent_vs_plain)
+    rec_times = timed("phase 7 times", phase_recurrent_times)
+    gather_err, gather_launches = timed("phase 10", phase_gather_vs_plain)
+    timed("phase 10 grad guard", phase_grad_guard)
+    gather_times = timed("phase 10 times", phase_gather_times)
+    rwkv_launches = timed("phase 8", phase_serve_rwkv)
+    rgemma_launches = timed("phase 9", phase_serve_rgemma)
+    moe_launches = timed("phase 20", phase_serve_moe)
+    hd128_times = timed("phase 20 times", phase_times, MOE_SHAPE)
     print(f"device: {smi_line()}")
     flash_paths = {"smollm-135m": launches["flash_attention"],
                    "recurrentgemma-9b": rgemma_launches["flash_attention"],
+                   "qwen3-moe-30b-a3b": moe_launches["flash_attention"],
                    **prompt_flash}
     kernels = [dict(
         name="flash_attention", route="cuda",
@@ -2557,7 +2992,9 @@ def main() -> int:
         max_abs_err=max_err, **times, **insts["flash_attention"],
         hd256=dict(max_abs_err=rec_err["flash_hd256"],
                    serving=rec_times["flash_hd256_serving"],
-                   long=rec_times["flash_hd256_long"]))]
+                   long=rec_times["flash_hd256_long"]),
+        hd128=dict(max_abs_err=hd128_err, serving=hd128_times,
+                   shape=MOE_SHAPE))]
     for name, line, launched in (
             ("wkv6", "src/repro/kernels/wkv6.py:27", rwkv_launches),
             ("rglru_scan", "src/repro/kernels/rglru_scan.py:21",

@@ -36,9 +36,11 @@ while grad is enabled (``_refuse_grad``): the kernel's output would carry
 no ``grad_fn`` and cut the gradient without a word.  Serving runs under
 ``torch.inference_mode()`` and is not affected; the plain versions on the
 CPU stay differentiable.  Training does not reach these wrappers: train
-mode runs attention through ``models.attention.chunked_attention``, as the
-JAX package trains, and the recurrent families' training waits for the
-scans' backward (ROADMAP.md queue 1, item 6).
+mode runs attention through ``models.attention.chunked_attention``, the
+WKV-6 recurrence through ``models.rwkv6.wkv6_chunked`` and the RG-LRU
+through ``models.rglru.rglru_scan``, plain PyTorch under autograd, as the
+JAX package trains outside its Pallas kernels (ROADMAP.md queue 1, item
+6); a backward kernel would be perf work (queue 2, item i).
 """
 
 from __future__ import annotations
@@ -91,11 +93,11 @@ def _refuse_grad(name: str, *ts: torch.Tensor) -> None:
     if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
         raise RuntimeError(
             f"{name}: an input requires grad, but the CUDA kernel has no "
-            "backward yet (train mode runs attention through "
-            "chunked_attention; ROADMAP.md queue 1, item 6 brings the "
-            "recurrent scans' backward); call it under torch.no_grad() or "
-            "torch.inference_mode(), or on CPU tensors, whose plain "
-            "version is differentiable")
+            "backward yet (train mode runs attention, the WKV-6 recurrence "
+            "and the RG-LRU scan in plain PyTorch, ROADMAP.md queue 1, item "
+            "6; a backward kernel is queue 2, item i); call it under "
+            "torch.no_grad() or torch.inference_mode(), or on CPU tensors, "
+            "whose plain version is differentiable")
 
 
 def _check_attention(q, k, v, window: int) -> None:

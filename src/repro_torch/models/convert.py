@@ -7,8 +7,10 @@ holds one stacked subtree per block kind, ``b0`` .. ``b{k-1}``, with a
 leading group axis; group g's kind i becomes the port's sub-block
 ``blocks.{g * k + i}``.  Names map leaf for leaf (a norm leaf such as
 ``ln1`` becomes the norm's ``weight``; RWKV leaves nest as ``time.*`` and
-``channel.*``).  Values are copied as they are (float32 stays float32),
-and a missing, extra or misshapen leaf raises.
+``channel.*``, a MoE's as ``ffn.router``, ``ffn.wi`` (E, d, f) and so on,
+stacked to (groups, E, d, f) in the JAX layout).  Values are copied as
+they are (float32 stays float32), and a missing, extra or misshapen leaf
+raises.
 
 A JAX leaf is the unit the optimizers decide and reduce over
 (``train/optimizer.py``), so ``jax_leaves`` groups the port's parameters

@@ -1,18 +1,24 @@
-"""Decoder-only LM: the dense, hybrid (RG-LRU + local attention) and ssm
-(RWKV-6) families.
+"""Decoder-only LM: the dense, moe (attention, then a routed MoE in place
+of the MLP), hybrid (RG-LRU + local attention) and ssm (RWKV-6) families,
+each of which serves and trains.
 
 The JAX package scans stacked parameter groups over the layers (a group is
 one ``block_kinds`` repetition); this module loops over an
 ``nn.ModuleList`` of sub-blocks, group g's kind i at index g * k + i.
-Caches are preallocated per sub-block and updated in place.  Other
-families raise ``NotImplementedError`` naming the ROADMAP item that brings
-them.
+Caches are preallocated per sub-block and updated in place (a moe
+sub-block's cache is its attention's).  The vlm and audio families raise
+``NotImplementedError`` naming the ROADMAP item that brings them.
 
 Modes: 'train' (no cache; ``loss_fn``), 'prefill' (populate caches,
 return last-token logits), 'decode' (one token, in-place cache update).
-With ``cfg.remat`` each sub-block of a train forward that autograd records
-runs in ``torch.utils.checkpoint`` and is recomputed in the backward pass,
-as the JAX package rematerializes its scanned group body.
+Train mode calls no kernel wrapper: attention runs ``chunked_attention``,
+the RWKV-6 recurrence its chunked form and the RG-LRU a doubling scan, in
+plain PyTorch under autograd, as the JAX package trains outside its Pallas
+kernels.  With ``cfg.remat`` each sub-block of a train forward that
+autograd records runs in ``torch.utils.checkpoint`` and is recomputed in
+the backward pass, as the JAX package rematerializes its scanned group
+body; a moe sub-block's aux sums are outputs of the checkpointed function,
+so the recomputation neither counts them twice nor loses their grads.
 """
 
 from __future__ import annotations
@@ -29,11 +35,12 @@ from ..configs.base import ArchConfig
 from .attention import Attention
 from .layers import (MLP, RMSNorm, dense_init_, rms_norm, softmax_xent,
                      trunc_normal_)
+from .moe import AUX_KEYS, MoE
 from .rglru import RGLRU
 from .rwkv6 import RWKVBlock
 
 # families still to port -> the ROADMAP.md queue-1 item that brings them
-_LATER_FAMILIES = {"moe": 7, "vlm": 7, "audio": 7}
+_LATER_FAMILIES = {"vlm": 7, "audio": 7}
 
 
 def block_kinds(cfg: ArchConfig) -> Tuple[str, ...]:
@@ -42,6 +49,8 @@ def block_kinds(cfg: ArchConfig) -> Tuple[str, ...]:
         return cfg.block_pattern            # e.g. ("rec", "rec", "attn")
     if cfg.family == "ssm":
         return ("rwkv",)
+    if cfg.family == "moe":
+        return ("moe",)
     return ("attn",)
 
 
@@ -58,7 +67,9 @@ def n_groups(cfg: ArchConfig) -> int:
 
 class Block(nn.Module):
     """One pre-norm residual block: attention (windowed for the hybrid) or
-    the RG-LRU, then MLP."""
+    the RG-LRU, then the MLP, or for kind "moe" the routed experts.
+    ``forward`` returns (x, cache, aux): aux is the MoE's metrics, else
+    None."""
 
     def __init__(self, kind: str, cfg: ArchConfig, dtype, device=None):
         super().__init__()
@@ -69,7 +80,8 @@ class Block(nn.Module):
         self.mix = RGLRU(cfg, dtype, device) if kind == "rec" else \
             Attention(d, cfg.n_heads, cfg.n_kv_heads, cfg.hd, dtype, device)
         self.ln2 = RMSNorm(d, cfg.norm_eps, device)
-        self.ffn = MLP(d, cfg.d_ff, cfg.mlp, dtype, device)
+        self.ffn = MoE(cfg, dtype, device) if kind == "moe" else \
+            MLP(d, cfg.d_ff, cfg.mlp, dtype, device)
 
     def init(self, generator: torch.Generator) -> None:
         self.mix.init(generator)
@@ -83,7 +95,10 @@ class Block(nn.Module):
             o, cache = self.mix(self.ln1(x), cfg=cfg, mode=mode, cache=cache,
                                 pos=pos, window=self.window)
         x = x + o
-        return x + self.ffn(self.ln2(x)), cache
+        if self.kind == "moe":
+            o, aux = self.ffn(self.ln2(x), cfg)
+            return x + o, cache, aux
+        return x + self.ffn(self.ln2(x)), cache, None
 
 
 class DecoderLM(nn.Module):
@@ -139,34 +154,60 @@ class DecoderLM(nn.Module):
     # -- layers ------------------------------------------------------------
     def backbone(self, x, mode: str, caches: Optional[List[Dict]] = None,
                  pos=None):
-        remat = self.cfg.remat and mode == "train" and \
-            torch.is_grad_enabled()
+        """The sub-blocks in order: (x, caches)."""
+        x, _, caches = self.backbone_aux(x, mode, caches, pos)
+        return x, caches
+
+    def backbone_aux(self, x, mode: str,
+                     caches: Optional[List[Dict]] = None, pos=None):
+        """(x, aux, caches): aux sums each MoE metric (``AUX_KEYS``) over
+        the sub-blocks, float32 0-d tensors; empty for the other
+        families."""
+        cfg = self.cfg
+        remat = cfg.remat and mode == "train" and torch.is_grad_enabled()
+        aux = {k: torch.zeros((), device=x.device) for k in AUX_KEYS} \
+            if cfg.n_experts else {}
+
+        def run(blk, h, cache):
+            h, _, a = blk(h, cfg, mode, cache, pos)
+            return (h,) if a is None else (h,) + tuple(a[k]
+                                                      for k in AUX_KEYS)
         for i, blk in enumerate(self.blocks):
             if remat:
-                x = checkpoint(lambda h, blk=blk: blk(h, self.cfg, mode,
-                                                      None, pos)[0],
-                               x, use_reentrant=False)
+                out = checkpoint(run, blk, x, None, use_reentrant=False)
             else:
-                x, _ = blk(x, self.cfg, mode,
-                           caches[i] if caches is not None else None, pos)
-        return x, caches
+                out = run(blk, x, caches[i] if caches is not None else None)
+            x = out[0]
+            for k, v in zip(AUX_KEYS, out[1:]):
+                aux[k] = aux[k] + v
+        return x, aux, caches
 
     # -- public entry points ------------------------------------------------
     def loss_fn(self, batch):
         """Train forward: batch {tokens (B,S), labels (B,S)[, loss_mask
-        (B,S)]}.  Returns (loss, metrics {"loss", "total_loss"}): the mean
-        token cross entropy with z-loss 1e-4, over the tokens the mask
-        keeps when it is given."""
+        (B,S)]}.  Returns (loss, metrics {"loss"[, the MoE metrics],
+        "total_loss"}): the mean token cross entropy with z-loss 1e-4, over
+        the tokens the mask keeps when it is given; the moe family adds
+        0.01 x its load-balancing loss and 0.001 x its router z-loss, each
+        averaged over the layer groups, and reports the three MoE metrics
+        so averaged."""
         x = self.embed_inputs(batch["tokens"])
         pos = torch.arange(x.shape[1], device=x.device)[None, :]
-        x, _ = self.backbone(x, "train", None, pos)
+        x, aux, _ = self.backbone_aux(x, "train", None, pos)
         tok_loss = softmax_xent(self.head(x), batch["labels"])
         mask = batch.get("loss_mask")
         if mask is None:
             loss = tok_loss.mean()
         else:
             loss = (tok_loss * mask).sum() / torch.clamp(mask.sum(), min=1)
-        return loss, {"loss": loss, "total_loss": loss}
+        metrics = {"loss": loss}
+        if aux:
+            scale = 1.0 / self.groups
+            loss = loss + 0.01 * aux["moe_lb_loss"] * scale \
+                + 0.001 * aux["moe_z_loss"] * scale
+            metrics.update({k: v * scale for k, v in aux.items()})
+        metrics["total_loss"] = loss
+        return loss, metrics
 
     def forward(self, batch):
         """``loss_fn``: what ``torch.func.functional_call`` runs when the
@@ -176,7 +217,8 @@ class DecoderLM(nn.Module):
 
     def init_cache(self, B: int, cache_len: int) -> List[Dict]:
         """Zero caches, one dict per sub-block, updated in place by prefill
-        and decode: attention {"k", "v", "len"[, "k_scale", "v_scale"]}
+        and decode: attention and moe {"k", "v", "len"[, "k_scale",
+        "v_scale"]}
         (a ring of min(cache_len, local_window) for the hybrid), RG-LRU
         {"h", "conv"}, RWKV {"time": {"shift", "state"}, "channel":
         {"shift"}}."""

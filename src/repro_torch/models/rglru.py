@@ -13,8 +13,10 @@ projection.  The gates are block-diagonal over 16 heads.  Prefill runs the
 recurrence through ``ops.rglru_scan`` (the hand-written kernel for CUDA
 tensors, its plain version for CPU tensors) with the carried h as its h0;
 the JAX model folds h0 into b_0 and takes an associative scan, which
-agrees to rounding.  Decode is one plain step.  Caches are updated in
-place.
+agrees to rounding.  Train mode runs ``rglru_scan``: h0 folded into b_0 as
+the JAX model does, then a log-depth doubling scan in plain PyTorch under
+autograd (the kernel has no backward).  Decode is one plain step.  Caches
+are updated in place.
 """
 
 from __future__ import annotations
@@ -52,6 +54,27 @@ def coeffs(p, x):
     return a, beta * (i.float() * x.float())
 
 
+def rglru_scan(a, b, h0: Optional[torch.Tensor] = None):
+    """h_t = a_t h_{t-1} + b_t over S, differentiable: a, b (B, S, w)
+    float32; h0 (B, w) or None.  Returns (h (B, S, w) float32, h[:, -1]).
+
+    The JAX model's ``associative_scan`` of (a_l a_r, b_l a_r + b_r), here
+    as a doubling scan: after the pass of shift 2^j, position t holds the
+    composition of the 2^(j+1) steps ending at t.  Out of place, so that
+    autograd records every pass; it agrees with the JAX tree to rounding."""
+    a, b = a.float(), b.float()
+    if h0 is not None:
+        b = torch.cat([b[:, :1] + a[:, :1] * h0.float()[:, None], b[:, 1:]],
+                      dim=1)
+    S, shift = a.shape[1], 1
+    while shift < S:
+        b = torch.cat([b[:, :shift],
+                       b[:, :-shift] * a[:, shift:] + b[:, shift:]], dim=1)
+        a = torch.cat([a[:, :shift], a[:, :-shift] * a[:, shift:]], dim=1)
+        shift *= 2
+    return b, b[:, -1]
+
+
 def rglru_step(p, x, h):
     """One decode step.  x: (B, 1, w); h: (B, w) float32.  Returns
     (y (B, 1, w) in x's dtype, new h float32)."""
@@ -82,6 +105,10 @@ def rglru_block_apply(p, x, cfg, mode: str, cache: Optional[Dict] = None):
                                  cache["conv"] if cache else None)
     if mode == "decode":
         y, h_last = rglru_step(p, rec, cache["h"])
+    elif mode == "train":
+        h, h_last = rglru_scan(*coeffs(p, rec),
+                               cache["h"] if cache else None)
+        y = h.to(rec.dtype)
     else:
         a, b = coeffs(p, rec)
         h, h_last = ops.rglru_scan(a, b, cache["h"] if cache else None)

@@ -11,8 +11,10 @@ sigmoid(x_r Wr) * (k Wv).
 Prefill runs the recurrence through ``ops.wkv6`` (the hand-written kernel
 for CUDA tensors, its plain version for CPU tensors) at any sequence
 length: the JAX model's chunked form needs S to be a multiple of its chunk
-(``wkv6_chunked`` asserts it), the function itself does not.  Decode is
-one plain step.  Caches are updated in place.
+(``wkv6_chunked`` asserts it), the function itself does not.  Train mode
+runs ``wkv6_chunked``, the JAX model's chunked form in plain PyTorch under
+autograd (the kernel has no backward), at any length.  Decode is one plain
+step.  Caches are updated in place.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from ..kernels import ops
 from .layers import RMSNorm, dense_init_, normal_, uniform_
 
 LORA_R = 64
+TRAIN_CHUNK = 16
 
 
 def token_shift(x, last: Optional[torch.Tensor]):
@@ -47,6 +50,61 @@ def wkv6_step(r, k, v, w, u, state):
                        state + u[None, :, :, None] * kv)
     state = state * w0[..., None] + kv
     return out[:, None].to(r.dtype), state
+
+
+def wkv6_chunked(r, k, v, w, u, state: Optional[torch.Tensor] = None,
+                 chunk: int = TRAIN_CHUNK):
+    """The WKV-6 recurrence in chunks of ``min(chunk, S)`` tokens, in
+    float32, differentiable: the JAX model's ``wkv6_chunked`` in the same
+    order of operations.  r, k, v, w: (B, S, H, N), w the decays in (0, 1);
+    u: (H, N); state: (B, H, N, N) float32 (zeros when None).  Returns (out
+    (B, S, H, N) in r's dtype, final state float32).
+
+    Within a chunk, with cum the inclusive cumulative log decay:
+    o_t = (r_t e^{cum_t - log w_t}) S + sum_{s<t} A_ts v_s + (r_t . u k_t)
+    v_t, where A = (r e^{cum - log w}) (k e^{-cum})^T; the decay floor of
+    ``rwkv_time_apply`` (log w >= -4) keeps e^{-cum} inside float32 range
+    at chunk 16.  Every term that depends on one chunk alone is computed
+    for all chunks at once; only the state carried from chunk to chunk,
+    S' = S e^{cum_last} + (k e^{cum_last - cum})^T v, runs as a loop, as
+    the JAX scan runs it, so a step issues a few hundred kernels a layer
+    rather than a few thousand.
+
+    The JAX function asserts that S is a multiple of the chunk.  This one
+    pads the tail to a multiple with r = k = v = 0 and w = 1, and drops the
+    padding from the output: a zero key adds nothing to the state and a
+    decay of 1 keeps it, so every real output and the final state are
+    those of the unpadded recurrence."""
+    B, S, H, N = r.shape
+    f32 = torch.float32
+    if state is None:
+        state = torch.zeros((B, H, N, N), dtype=f32, device=r.device)
+    C = min(chunk, S)
+    pad = -S % C
+    G = (S + pad) // C
+
+    def chunks(x, fill=0.0):                       # (G, B, H, C, N)
+        x = F.pad(x.float(), (0, 0, 0, 0, 0, pad), value=fill)
+        return x.view(B, G, C, H, N).permute(1, 0, 3, 2, 4)
+    rc, kc, vc, wc = chunks(r), chunks(k), chunks(v), chunks(w, 1.0)
+    tri = torch.tril(torch.ones((C, C), dtype=f32, device=r.device), -1)
+    logw = torch.log(torch.clamp(wc, min=1e-8))
+    cum = torch.cumsum(logw, dim=3)                # inclusive
+    rd = rc * torch.exp(cum - logw)                # decay to just before t
+    A = torch.einsum("gbhtn,gbhsn->gbhts", rd, kc * torch.exp(-cum)) * tri
+    out_intra = torch.einsum("gbhts,gbhsn->gbhtn", A, vc)
+    diag = torch.einsum("gbhcn,gbhcn->gbhc", rc, kc * u.float()[:, None, :])
+    k_tail = kc * torch.exp(cum[..., -1:, :] - cum)
+    kv = torch.einsum("gbhcn,gbhcm->gbhnm", k_tail, vc)
+    d_total = torch.exp(cum[..., -1, :])[..., None]
+    st, before = state.float(), []
+    for g in range(G):                             # the state entering g
+        before.append(st)
+        st = st * d_total[g] + kv[g]
+    out_state = torch.einsum("gbhcn,gbhnm->gbhcm", rd, torch.stack(before))
+    out = out_state + out_intra + diag[..., None] * vc
+    out = out.permute(1, 0, 3, 2, 4).reshape(B, G * C, H, N)
+    return out[:, :S].to(r.dtype), st
 
 
 def rwkv_time_apply(p, x, cfg, mode: str, cache: Optional[Dict] = None):
@@ -70,6 +128,8 @@ def rwkv_time_apply(p, x, cfg, mode: str, cache: Optional[Dict] = None):
     state = cache["state"] if cache else None
     if mode == "decode":
         out, new_state = wkv6_step(r, k, v, w, p.u, state)
+    elif mode == "train":
+        out, new_state = wkv6_chunked(r, k, v, w, p.u, state)
     else:
         out, new_state = ops.wkv6(r, k, v, w, p.u, state)
     # simplified group norm over each head
@@ -169,4 +229,4 @@ class RWKVBlock(nn.Module):
         x = x + o
         o, _ = self.channel(self.ln2(x), cfg, mode,
                             cache["channel"] if cache else None)
-        return x + o, cache
+        return x + o, cache, None

@@ -3,13 +3,16 @@ accumulation and bf16 compute copies of float32 master weights (the JAX
 package's ``train/trainstep.py``).
 
 The port's train state is ``{"params": the model, "opt": the optimizer
-state in the JAX layout, "step": an int32 tensor}``.  The model's
-parameters are updated in place under ``torch.no_grad()``: the port's
-counterpart of the JAX step's buffer donation, where the old params
-transfer their memory to the new ones instead of being copied.  The
-optimizer works on JAX leaves (``models.convert.jax_leaves``): each
-leaf's grads and params are stacked over the layer groups for the update
-and written back per layer.
+state in the JAX layout, "step": an int32 tensor}``.  A step owns the
+state it is given, as the JAX step owns its donated buffers: the model's
+parameters are updated in place under ``torch.no_grad()``, and the
+optimizer's moments of each leaf are replaced in the given state's dicts,
+which the step returns.  The optimizer works on JAX leaves
+(``models.convert.jax_leaves``), one leaf at a time: its grads and params
+are stacked over the layer groups for the update and written back per
+layer, and a leaf's grads are freed (or, with AdamW, become its new
+params) before the next one, so the peak holds the state, the float32
+grads and one leaf's temporaries.
 """
 
 from __future__ import annotations
@@ -76,9 +79,10 @@ def make_train_step(api, *, peak_lr: float = 3e-4, warmup: int = 100,
                 model, {names[p]: comp[p] for p in params}, (batch,))
         else:
             loss, metrics = model.loss_fn(batch)
-        grads = torch.autograd.grad(loss, inputs)
-        return [g.float() for g in grads], {
-            k: v.detach().float() for k, v in metrics.items()}
+        grads = list(torch.autograd.grad(loss, inputs))
+        for i, g in enumerate(grads):      # one bf16 grad freed at a time
+            grads[i] = g.float()
+        return grads, {k: v.detach().float() for k, v in metrics.items()}
 
     def accum_grads(batch):
         if accum <= 1:
@@ -102,23 +106,26 @@ def make_train_step(api, *, peak_lr: float = 3e-4, warmup: int = 100,
                            total=total_steps)
         grads, metrics = accum_grads(batch)
         by_param = dict(zip(params, grads))
+        del grads
+        opt_state = state["opt"]
+        count = opt_state["count"] + 1
+        sq = []
         with torch.no_grad():
-            g_leaves = {leaf.path: leaf.stack([by_param[p]
-                                               for p in leaf.params])
-                        for leaf in leaves}
-            p_leaves = {leaf.path: leaf.stack([p.detach()
-                                               for p in leaf.params])
-                        for leaf in leaves}
-            new_p, new_opt = opt.update(g_leaves, state["opt"], p_leaves,
-                                        lr)
             for leaf in leaves:
-                for p, new in zip(leaf.params,
-                                  leaf.unstack(new_p[leaf.path])):
-                    p.copy_(new)
-            gn = torch.sqrt(sum(g.square().sum()
-                                for g in g_leaves.values()))
+                g = leaf.stack([by_param.pop(p) for p in leaf.params])
+                flat = g.reshape(-1)
+                sq.append(torch.dot(flat, flat))
+                new = opt.update_leaf(
+                    leaf.path, g, opt_state,
+                    leaf.stack([p.detach() for p in leaf.params]), lr, count)
+                del g, flat
+                for p, t in zip(leaf.params, leaf.unstack(new)):
+                    p.copy_(t)
+                del new
+            opt_state["count"] = count
+            gn = torch.sqrt(sum(sq))
         metrics = dict(metrics, grad_norm=gn, lr=lr)
-        return {"params": model, "opt": new_opt,
+        return {"params": model, "opt": opt_state,
                 "step": state["step"] + 1}, metrics
 
     return step_fn

@@ -7,8 +7,9 @@ gather, segment reductions) bit for bit over every dtype family and edge
 case, and the relational ops on the card against the same ops on the CPU;
 read-only inputs at the kdispatch edge and the plan-compiled star query
 through the executor's threads and Flight workers; the row gather and
-dictionary decode bit for bit, and the gradient guard of every wrapper
-that takes floats.  Skips without a CUDA card; run it
+dictionary decode bit for bit, the gradient guard of every wrapper
+that takes floats, and a train step of the ssm, hybrid and moe families
+that reaches no kernel wrapper.  Skips without a CUDA card; run it
 there with
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -636,3 +637,35 @@ def test_wrappers_refuse_inputs_that_require_grad(cuda, kind):
     with torch.no_grad():
         call(x)
     assert ops.launch_counts[kind] == before + 1
+
+
+@pytest.mark.parametrize("name", ["rwkv6-3b", "recurrentgemma-9b",
+                                  "qwen3-moe-30b-a3b"])
+def test_train_mode_on_the_card_reaches_no_kernel_wrapper(cuda, monkeypatch,
+                                                          name):
+    """A train step of each family's smoke variant on the card, in bf16
+    compute with remat, with every model kernel wrapper replaced by one
+    that raises: train mode runs its plain counterparts, the wrappers'
+    launch counts stay put, and the loss and grad norm are finite."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch, smoke_variant
+    from repro_torch.models.api import ModelAPI
+    from repro_torch.train.trainstep import init_state, make_train_step
+    cfg = dataclasses.replace(smoke_variant(get_arch(name)),
+                              dtype="bfloat16", remat=True)
+    api = ModelAPI(cfg, device=cuda)
+    state = init_state(api, torch.Generator(device=cuda).manual_seed(0))
+
+    def refuse(*a, **k):
+        raise AssertionError("train mode reached a kernel wrapper")
+    for w in ("flash_attention", "wkv6", "rglru_scan"):
+        monkeypatch.setattr(ops, w, refuse)
+    before = dict(ops.launch_counts)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    batch = {k: torch.randint(1, cfg.vocab, (2, 48), generator=g,
+                              device=cuda, dtype=torch.int32)
+             for k in ("tokens", "labels")}
+    state, m = make_train_step(api, warmup=1)(state, batch)
+    assert all(torch.isfinite(m[k]) for k in ("loss", "grad_norm"))
+    assert dict(ops.launch_counts) == before

@@ -63,3 +63,21 @@ def test_configs_equal_the_jax_package():
             want.param_count(), name
     assert [dataclasses.asdict(s) for s in configs.SHAPES] == \
         [dataclasses.asdict(s) for s in jconfigs.SHAPES]
+
+
+def test_moe_module_stands_alone():
+    """The moe family's module is one of the scanned files and imports
+    neither jax nor the JAX package."""
+    path = ROOT / "src" / "repro_torch" / "models" / "moe.py"
+    assert path in PORT_FILES
+    assert not set(imported_roots(path)) & set(FORBIDDEN)
+
+
+@pytest.mark.parametrize("name", ["internvl2-26b", "whisper-medium"])
+def test_vlm_and_audio_name_queue_1_item_7(name):
+    from repro_torch.models.lm import DecoderLM
+    cfg = configs.smoke_variant(configs.ARCHS[name])
+    assert cfg.family in ("vlm", "audio")
+    with pytest.raises(NotImplementedError,
+                       match=r"ROADMAP.md queue 1, item 7\)"):
+        DecoderLM(cfg, device="cpu")
