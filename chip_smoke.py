@@ -123,20 +123,20 @@
     --prompt-shards 4 --workers 2 --workers-mode process`` as a user
     runs it, for 2 rounds.
 14. The training input pipeline (run right after phase 13):
-    ``ZerrowDataPipeline`` over a corpus of 4 zarquet shards of 250,000
+    ``ZerrowDataPipeline`` over a corpus of 2 zarquet shards of 250,000
     documents each (about 22 MB of text a shard) and the metadata of
-    1,000,000 documents (keep_frac 0.75), batch 8 x 1024 tokens, in thread
+    500,000 documents (keep_frac 0.75), batch 8 x 1024 tokens, in thread
     mode (4 workers) on ``cuda`` and on ``cpu``, then through 2 Flight
     workers on ``cuda``.  Every batch of each run must equal the numpy
     recount (the kept documents' bytes in order), so the three runs are
     bit-identical; the launch counts, set to 0 just before each run and
-    read just after, must be 4 times what one shard's join by hand
+    read just after, must be 2 times what one shard's join by hand
     launches, in this process for threads and in the workers (the parent
     launching nothing) for processes.  Each run's wall time and stats.
 15. Train smollm-135m at full width (30 layers, d_model 576, vocab 49152,
     float32 masters, bf16 compute, remat, AdamW; weights drawn on the card
-    from a seeded CUDA generator) for 30 steps on phase 14's batches,
-    peak lr 1e-3, warmup 10: every loss and grad norm finite, the mean
+    from a seeded CUDA generator) for 10 steps on phase 14's batches,
+    peak lr 1e-3, warmup 3: every loss and grad norm finite, the mean
     loss of the last 5 steps below step 0's, no kernel launched on the
     model path (attention trains through ``chunked_attention``).  Median
     step time, tokens per second, peak memory, and a profiled step.
@@ -149,7 +149,7 @@
     second save reuses every blob.  Then ``python -m
     repro_torch.launch.train --arch smollm-135m --steps 50 --ckpt-dir D``
     as a user runs it, with ``TMPDIR`` set to a fresh directory (it makes
-    its own corpus), and again with ``--resume --steps 10``, which must
+    its own corpus), and again with ``--resume --steps 2``, which must
     resume from step 50; every loss finite.
 18. Train rwkv6-3b at full width and depth (32 layers, 3.07 B
     parameters; run right after phase 17, as 19 and 21 are): float32
@@ -187,7 +187,38 @@
     routing of each forward is compared first: where it agrees the grads
     are held to 1e-5 per leaf, where it differs the loss to 1e-3, and more
     than 1 % of token-layers routed differently fails.
-22. A JSON line per kernel, then ``{"ok": true, "device": ...}`` as the
+22. Flash attention at the served shapes of the vlm and enc-dec
+    families (run right after phase 20): internvl2-26b's prefill (B 8,
+    48 query and 8 KV heads, G 6, hd 128, causal; 256 patches and 512
+    tokens, and a ragged 461) and whisper-medium's encoder (B 8, S = T
+    1500 frames, 16 heads, G 1, hd 64, non-causal) and decoder BOS prefill
+    (S = T = 1), in bf16 and float32, each against its plain version;
+    then the first two timed as in phase 3 (kernel, plain, sdpa, bound).
+23. Serve internvl2-26b at full width and 24 of its 48 layers (10.5 B
+    parameters, 42.1 GB of float32 weights) through ``ModelAPI.prefill``
+    and ``serve_step``: 2 rounds of batch 8, each sequence 256 patch
+    embeddings (seeded normals: the InternViT frontend is a stub) before
+    a left-padded prompt of 256-512 random tokens, a cache of 1280, 32 new
+    tokens.  Each prefill must launch flash 24 times, every launch at G 6
+    over the patches and the text.  Round 0's prefill against the plain
+    path in bf16 and float32, every flash launch of one more prefill
+    against its plain version on its own inputs, decode against prefill
+    in float32 (two sequences), a profiled warm round.
+24. Serve whisper-medium uncut (24 + 24 layers, 0.76 B parameters) the
+    same way: 2 rounds of batch 8, 1500 frame embeddings a sequence
+    (seeded normals: the conv frontend is a stub) and a BOS prompt, a
+    cache of 1500, 32 new tokens.  Each prefill must launch flash 48
+    times: 24 non-causal over the 1500 frames (the encoder) and 24 at S =
+    T = 1 (the decoder's BOS).  The same checks as phase 23.
+25. Train internvl2-26b at full width and 5 layers (3.13 B parameters,
+    56.3 GB at 18 bytes a parameter), B 2 x (256 patches + 768 tokens of
+    the pipeline), as phase 18 trains but at peak lr 1e-4 (at 1e-3 this
+    width's loss rises from step 3), then the float32 card-against-CPU
+    step at 1 layer.
+26. Train whisper-medium uncut (13.7 GB), B 8 x (1500 frames + 448 tokens
+    of the pipeline), as phase 18, then the card-against-CPU step at 2 +
+    2 layers.
+27. A JSON line per kernel, then ``{"ok": true, "device": ...}`` as the
     last line.
 
 Every check that fails exits non-zero before the last line is printed.
@@ -221,7 +252,7 @@ import torch.nn.functional as F
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-from repro_torch.configs import get_arch  # noqa: E402
+from repro_torch.configs import ShapeConfig, get_arch  # noqa: E402
 from repro_torch.core import (  # noqa: E402
     BufferStore, RMConfig, ResourceManager, kdispatch, make_executor, plan,
     vkernels, zarquet)
@@ -408,6 +439,16 @@ def build_model(name: str):
     return cfg, api
 
 
+def layout(model) -> str:
+    """The layers of a DecoderLM (sub-blocks by kind and group) or of an
+    EncDecLM (encoder and decoder layers)."""
+    if hasattr(model, "enc_blocks"):
+        return (f"{len(model.enc_blocks)} encoder + {len(model.dec_blocks)}"
+                " decoder layers")
+    return (f"{len(model.blocks)} sub-blocks {model.kinds} x "
+            f"{model.groups}")
+
+
 def prompts(rng, cfg, n: int, lo: int, hi: int, max_new: int) -> list:
     return [Request(prompt=rng.integers(1, cfg.vocab, size=int(
         rng.integers(lo, hi + 1))).astype(np.int32), max_new=max_new)
@@ -575,7 +616,7 @@ def phase_kernel_vs_plain():
         errs["hd 128 GQA 32/4 (qwen3-moe prefill)"]
 
 
-def phase_times(sv=SERVE_SHAPE):
+def phase_times(sv=SERVE_SHAPE, causal: bool = True):
     """Flash at a served prefill shape (smollm-135m's by default): kernel,
     plain version and sdpa from CUDA-graph replays, beside the bound."""
     q, k, v = attn_inputs(100, dtype=torch.bfloat16, **sv)
@@ -583,22 +624,31 @@ def phase_times(sv=SERVE_SHAPE):
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
 
     def library():
-        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                               enable_gqa=True)
+
+    def plain():
+        return ref.attention_ref(q, k, v, causal=causal)
+
+    def kernel():
+        return ops.flash_attention(q, k, v, causal=causal)
     lib_err = (library().transpose(1, 2).float()
-               - ref.attention_ref(q, k, v).float()).abs().max().item()
+               - plain().float()).abs().max().item()
     # plain, kernel, kernel, plain: drift on the card falls on both sides
-    plain = time_ms(lambda: ref.attention_ref(q, k, v))
-    kern = time_ms(lambda: ops.flash_attention(q, k, v))
-    kern += time_ms(lambda: ops.flash_attention(q, k, v))
-    plain += time_ms(lambda: ref.attention_ref(q, k, v))
+    plain_t = time_ms(plain)
+    kern = time_ms(kernel)
+    kern += time_ms(kernel)
+    plain_t += time_ms(plain)
     lib = time_ms(library)
     nbytes = sum(x.numel() * x.element_size() for x in (q, k, v, q))
-    flops = 4 * B * H * S * T * hd * 0.5          # causal: half the pairs
+    # causal: half the pairs
+    flops = 4 * B * H * S * T * hd * (0.5 if causal else 1.0)
     bound_ms, bound_by = bound(nbytes, flops, BF16_FLOP_PER_S)
-    ms, plain_ms, lib_ms = (statistics.median(t) for t in (kern, plain, lib))
-    print(f"times at {tuple(q.shape)} bf16 causal, ms per call: kernel "
-          f"{spread(kern)}, plain {spread(plain)}, library (sdpa) "
+    ms, plain_ms, lib_ms = (statistics.median(t)
+                            for t in (kern, plain_t, lib))
+    kind = "causal" if causal else "non-causal"
+    print(f"times at {tuple(q.shape)} bf16 {kind}, ms per call: kernel "
+          f"{spread(kern)}, plain {spread(plain_t)}, library (sdpa) "
           f"{spread(lib)} (max_abs_err vs plain {lib_err!r}); bound "
           f"{bound_ms!r} ms by {bound_by} ({nbytes} bytes, {flops:.0f} "
           f"flop); kernel at {bound_ms / ms:.4f} of the bound [{smi_line()}]")
@@ -665,17 +715,19 @@ OWN_KERNEL_RE = re.compile(r"\b(flash_fwd_kernel|flash_fwd_bf16_kernel"
                            r"|rglru_scan_kernel)\b")
 
 
-def profile_run(fn, label: str, top: int = 6, cpu: bool = True) -> dict:
+def profile_run(fn, label: str, top: int = 6) -> dict:
     """Run ``fn`` once under torch.profiler and print the device's busy
     share of the wall time (union of CUDA kernel and copy intervals), the
     part of it spent copying, the largest entries by device time, and the
-    time and busy share of each of the port's model kernels.  The profiler
-    adds host time, so the idle share it gives is an upper bound.  With
-    ``cpu`` False only the device's activity is traced (a step of a few
-    hundred thousand host ops)."""
+    time and busy share of each of the port's model kernels.  Only the
+    device's activity is traced: nothing here reads the host's, and
+    tracing it added about 20 s to each profiled serving round of a few
+    hundred thousand host ops and raised its idle share (internvl2-26b's
+    warm round 0.5161 with the host traced, 0.3817 without, on the H100).
+    The profiler still adds some host time, so the idle share it gives is
+    an upper bound."""
     from torch.profiler import ProfilerActivity, profile
-    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
-    with profile(activities=acts) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         sync()
@@ -2017,7 +2069,8 @@ def patched(patches):
 
 
 def kernel_vs_plain_prefill(api, tokens, shape, plain_patches, what: str,
-                            served_first, f64_patches=None) -> None:
+                            served_first, f64_patches=None,
+                            extra=None) -> None:
     """The prefill logits through the kernels against those with each
     kernel swapped for its plain version, with float32 compute on the
     same weights (the tight check, ``LOGIT_TOL``) and in bf16.  In bf16
@@ -2035,19 +2088,20 @@ def kernel_vs_plain_prefill(api, tokens, shape, plain_patches, what: str,
     and max) is ``LOGIT_TOL``'s or twice the floor of its own measure,
     whichever is larger.  The model's own float32 steps (the norms, the
     RWKV decay and group norm) stay float32 in that path, as the model
-    defines them."""
+    defines them.  ``extra``: the prefill's other inputs (patches,
+    frames)."""
+    batch = dict(extra or {}, tokens=tokens)
     logits = {}
     for dtype in (torch.bfloat16, torch.float32):
         with compute_dtype(api, dtype):
-            logits[dtype], _ = api.prefill({"tokens": tokens}, shape)
+            logits[dtype], _ = api.prefill(batch, shape)
             with patched(plain_patches):
-                logits[dtype, "plain"], _ = api.prefill({"tokens": tokens},
-                                                        shape)
+                logits[dtype, "plain"], _ = api.prefill(batch, shape)
     f32, bf16 = torch.float32, torch.bfloat16
     tol32 = LOGIT_TOL[f32]
     if f64_patches is not None:
         with compute_dtype(api, torch.float64), patched(f64_patches):
-            f64, _ = api.prefill({"tokens": tokens}, shape)
+            f64, _ = api.prefill(batch, shape)
         sync()
         check(bool(torch.isfinite(f64).all()), f"{what}: non-finite float64 "
               "logits")
@@ -2076,7 +2130,8 @@ def kernel_vs_plain_prefill(api, tokens, shape, plain_patches, what: str,
           "tokens")
 
 
-def each_launch_vs_plain(api, tokens, shape, twins, what: str) -> dict:
+def each_launch_vs_plain(api, tokens, shape, twins, what: str,
+                         extra=None) -> dict:
     """One more bf16 prefill in which every call of each wrapper is held
     to its plain version on the same inputs, before the caches change:
     the path's own shapes and values, free of the amplification through
@@ -2110,7 +2165,7 @@ def each_launch_vs_plain(api, tokens, shape, twins, what: str) -> dict:
         for name, plain, tol in twins:
             stack.enter_context(mock.patch.object(
                 ops, name, twin(name, getattr(ops, name), plain, tol)))
-        api.prefill({"tokens": tokens}, shape)
+        api.prefill(dict(extra or {}, tokens=tokens), shape)
     sync()
     print(f"{what}: every launch of a bf16 prefill against its plain version"
           f" on its own inputs: {n} launches, max_abs_err {errs}")
@@ -2130,17 +2185,22 @@ def ulps_from(got, want):
     return (got.double() - want).abs() / torch.pow(2.0, e - 7)
 
 
-def decode_vs_prefill(api, tokens, shape, what: str) -> None:
+def decode_vs_prefill(api, tokens, shape, what: str, extra=None,
+                      offset: int = 0) -> None:
     """Float32 compute: the logits of one decode step after the S tokens
-    against the last logits of a prefill of S + 1 tokens."""
+    against the last logits of a prefill of S + 1 tokens.  ``extra``: the
+    prefill's other inputs; ``offset``: the positions they take before
+    the tokens (a vlm's patches)."""
     B, S = tokens.shape
+    extra = extra or {}
     with compute_dtype(api, torch.float32):
-        logits, caches = api.prefill({"tokens": tokens}, shape)
+        logits, caches = api.prefill(dict(extra, tokens=tokens), shape)
         nxt = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
         step, _ = api.serve_step(
             {"tokens": nxt, "positions": torch.full(
-                (B, 1), S, dtype=torch.int32, device=CUDA)}, caches)
-        full, _ = api.prefill({"tokens": torch.cat([tokens, nxt], 1)}, shape)
+                (B, 1), offset + S, dtype=torch.int32, device=CUDA)}, caches)
+        full, _ = api.prefill(dict(extra, tokens=torch.cat([tokens, nxt], 1)),
+                              shape)
     sync()
     a, b = step[:, -1].float(), full[:, -1].float()
     err = (a - b).abs().max().item()
@@ -2250,10 +2310,12 @@ def phase_serve_rgemma() -> dict:
 # training smollm-135m on the Zerrow pipeline's batches
 # --------------------------------------------------------------------------
 
-# the corpus: 4 shards of 250,000 documents (8-24 words each, about 22 MB
-# of text a shard) and the metadata of 1,000,000 documents, 0.75 kept
-N_SHARDS, DOCS_PER_SHARD, KEEP_FRAC = 4, 250_000, 0.75
-TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_WARMUP, TRAIN_LR = 8, 1024, 30, 10, 1e-3
+# the corpus: 2 shards of 250,000 documents (8-24 words each, about 22 MB
+# of text a shard) and the metadata of 500,000 documents, 0.75 kept (cut
+# from 4 shards, and smollm's 30 steps to 10, to make room for phases
+# 22-26 in the script's time)
+N_SHARDS, DOCS_PER_SHARD, KEEP_FRAC = 2, 250_000, 0.75
+TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_WARMUP, TRAIN_LR = 8, 1024, 10, 3, 1e-3
 # card against CPU, float32 (TF32 off): step 0's grads per leaf by relative
 # L2 (the two devices sum the same products in other orders, which moves a
 # leaf by a few 1e-6 of its norm at most), the loss and grad norm of two
@@ -2394,12 +2456,17 @@ def phase_pipeline(root: str):
         runs["cuda, threads"][1], (shards, meta, per_shard)
 
 
+# the inputs of a train batch: the pipeline's tokens and labels, and the
+# patch or frame embeddings of the vlm and enc-dec families
+TRAIN_KEYS = ("tokens", "labels", "patches", "frames")
+
+
 def to_device(b, dev):
-    return {k: torch.from_numpy(b[k]).to(dev) for k in ("tokens", "labels")}
+    return {k: torch.as_tensor(b[k]).to(dev) for k in TRAIN_KEYS if k in b}
 
 
 def phase_train(batches):
-    """Phase 15: smollm-135m at full width trains 30 steps on the
+    """Phase 15: smollm-135m at full width trains 10 steps on the
     pipeline's batches.  Returns (api, state)."""
     cfg = get_arch("smollm-135m")
     api = ModelAPI(cfg, device=CUDA)
@@ -2515,7 +2582,9 @@ def phase_train_vs_cpu(batches, cfg=None, what: str = "train",
     distance, as phase 8 bounds rwkv6-3b's float32 logits by its noise
     floor; the card against the CPU is printed."""
     cfg = dataclasses.replace(cfg or get_arch("smollm-135m"), dtype="float32")
-    b = [{k: v[:1, :128].copy() for k, v in x.items()} for x in batches[:2]]
+    # one sequence of 128 tokens, beside its patches or frames whole
+    b = [{k: np.array(x[k][:1, :128]) if k in ("tokens", "labels")
+          else x[k][:1] for k in TRAIN_KEYS if k in x} for x in batches[:2]]
     t0 = time.perf_counter()
     apis = {"cpu": ModelAPI(cfg, device="cpu"),
             "cuda": ModelAPI(cfg, device=CUDA)}
@@ -2580,8 +2649,8 @@ def phase_train_vs_cpu(batches, cfg=None, what: str = "train",
     flips = [route_flips(x, y)[0]
              for x, y in zip(routes["cuda"], routes["cpu"])]
     total = n_moe * b[0]["tokens"].size
-    print(f"{what}, card vs cpu ({cfg.name}, {len(apis['cpu'].model.blocks)}"
-          f" sub-blocks, float32, B 1 x S 128; {time.perf_counter() - t0:.1f}"
+    print(f"{what}, card vs cpu ({cfg.name}, {layout(apis['cpu'].model)}"
+          f", float32, B 1 x S 128; {time.perf_counter() - t0:.1f}"
           f" s): step 0's grads, worst relative L2 over {len(sizes)} leaves "
           f"{worst!r} (tol {GRAD_TOL}); loss cuda {losses['cuda']!r} cpu "
           f"{losses['cpu']!r}; (loss, grad norm) of two steps cuda "
@@ -2669,7 +2738,7 @@ def phase_checkpoint(root: str, state) -> None:
     os.makedirs(env["TMPDIR"])
     d = os.path.join(root, "launcher-ckpt")
     outs = []
-    for extra in (["--steps", "50"], ["--steps", "10", "--resume"]):
+    for extra in (["--steps", "50"], ["--steps", "2", "--resume"]):
         cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
                "smollm-135m", "--ckpt-dir", d, *extra]
         t0 = time.perf_counter()
@@ -2700,9 +2769,17 @@ def phase_checkpoint(root: str, state) -> None:
 # untied embedding and head (2.69 B parameters, 48.4 GB) and
 # qwen3-moe-30b-a3b at 4 of 48 layers (3.11 B, 56 GB); every width is the
 # published one (PERF.md section 4)
-BIG_TRAIN = {"rwkv6-3b": (None, 4, 1024, 2),
-             "recurrentgemma-9b": (3, 1, 4096, 3),
-             "qwen3-moe-30b-a3b": (4, 2, 1024, 2)}
+# internvl2-26b at 5 of 48 layers (3.13 B, 56.3 GB) and whisper-medium
+# whole (0.76 B, 13.7 GB) have their patches (256) or frames (1500) beside
+# S tokens; the card-against-CPU step runs internvl2-26b at 1 layer and
+# whisper-medium at 2 encoder and 2 decoder layers.  The last column is
+# the peak lr: at d_model 6144, internvl2-26b's loss rose from step 3 on
+# at TRAIN_LR's 1e-3 (11.6 -> 24.3 by step 5), so it trains at 1e-4
+BIG_TRAIN = {"rwkv6-3b": (None, 4, 1024, 2, TRAIN_LR),
+             "recurrentgemma-9b": (3, 1, 4096, 3, TRAIN_LR),
+             "qwen3-moe-30b-a3b": (4, 2, 1024, 2, TRAIN_LR),
+             "internvl2-26b": (5, 2, 768, 1, 1e-4),
+             "whisper-medium": (None, 8, 448, 2, TRAIN_LR)}
 BIG_STEPS, BIG_WARMUP = 10, 3
 # serving qwen3-moe-30b-a3b: 16 of 48 layers, 42.4 GB of float32 masters
 MOE_SERVE_LAYERS = 16
@@ -2710,9 +2787,33 @@ MODEL_KERNELS = ("flash_attention", "wkv6", "rglru_scan")
 
 
 def big_cfg(name: str, n_layers):
+    """``name`` at ``n_layers`` (an enc-dec: that many of each kind), or
+    at its published depth for None."""
     cfg = get_arch(name)
-    return cfg if n_layers is None else dataclasses.replace(
-        cfg, n_layers=n_layers)
+    if n_layers is None:
+        return cfg
+    if cfg.is_encdec:
+        return dataclasses.replace(cfg, n_layers=n_layers,
+                                   encoder_layers=n_layers)
+    return dataclasses.replace(cfg, n_layers=n_layers)
+
+
+# Whisper's 30-second window: n_audio_ctx frames
+N_FRAMES = 1500
+
+
+def extra_inputs(cfg, B: int, g: torch.Generator) -> dict:
+    """A batch's patch or frame embeddings (the frontends are stubs in
+    both packages): seeded normals drawn on the card, in the compute
+    dtype, as ``input_specs`` gives them; {} for a text model."""
+    if cfg.is_encdec:
+        name, n = "frames", N_FRAMES
+    elif cfg.vision_tokens:
+        name, n = "patches", cfg.vision_tokens
+    else:
+        return {}
+    return {name: torch.randn((B, n, cfg.d_model), generator=g,
+                              device=CUDA).to(getattr(torch, cfg.dtype))}
 
 
 def pipeline_batches(corpus, B: int, S: int, n: int):
@@ -2736,24 +2837,24 @@ def pipeline_batches(corpus, B: int, S: int, n: int):
 
 
 def phase_train_big(name: str, corpus) -> dict:
-    """Phases 18, 19 and 21: ``name`` at full width (depth as in
+    """Phases 18, 19, 21, 25 and 26: ``name`` at full width (depth as in
     ``BIG_TRAIN``), float32 masters, bf16 compute, remat, AdamW, 10 steps
-    on the pipeline's batches; then the float32 card-against-CPU step.
-    Returns the launches of the run (the pipeline's join)."""
-    n_layers, B, S, cpu_layers = BIG_TRAIN[name]
+    on the pipeline's batches (with seeded patches or frames beside them
+    for the vlm and enc-dec families); then the float32 card-against-CPU
+    step.  Returns the launches of the run (the pipeline's join)."""
+    n_layers, B, S, cpu_layers, lr = BIG_TRAIN[name]
     cfg = big_cfg(name, n_layers)
     t0 = time.perf_counter()
     api = ModelAPI(cfg, device=CUDA)
     state = init_state(api, torch.Generator(device=CUDA).manual_seed(0))
-    step = make_train_step(api, peak_lr=TRAIN_LR, warmup=BIG_WARMUP,
+    step = make_train_step(api, peak_lr=lr, warmup=BIG_WARMUP,
                            total_steps=BIG_STEPS)
     sync()
     n = sum(p.numel() for p in api.model.parameters())
-    print(f"train {cfg.name}: {len(api.model.blocks)} sub-blocks "
-          f"{api.model.kinds} x {api.model.groups}, d_model {cfg.d_model}, "
+    print(f"train {cfg.name}: {layout(api.model)}, d_model {cfg.d_model}, "
           f"vocab {cfg.vocab}, {n} float32 parameters, {cfg.dtype} compute, "
           f"remat {cfg.remat}, {cfg.optimizer}; B {B} x S {S}, peak lr "
-          f"{TRAIN_LR}, warmup {BIG_WARMUP}; state made on the card in "
+          f"{lr}, warmup {BIG_WARMUP}; state made on the card in "
           f"{time.perf_counter() - t0:.1f} s, "
           f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated")
     torch.cuda.reset_peak_memory_stats()
@@ -2761,6 +2862,10 @@ def phase_train_big(name: str, corpus) -> dict:
     t0 = time.perf_counter()
     batches, n_batches = pipeline_batches(corpus, B, S, BIG_STEPS + 1)
     t_pipe = time.perf_counter() - t0
+    g = torch.Generator(device=CUDA).manual_seed(1)
+    batches = [dict(b, **extra_inputs(cfg, B, g)) for b in batches]
+    extra = {k: tuple(v.shape) for k, v in batches[0].items()
+             if k in ("patches", "frames")}
     losses, norms, times, aux = [], [], [], []
     for b in batches[:BIG_STEPS]:
         t0 = time.perf_counter()
@@ -2775,8 +2880,10 @@ def phase_train_big(name: str, corpus) -> dict:
     med = statistics.median(times[1:])
     _, _, per_shard = corpus
     print(f"train {cfg.name}: the pipeline gave {n_batches} batches of {B} x "
-          f"{S} from one shard in {t_pipe:.2f} s; launches of the run "
-          f"{launches} (one shard's join: {per_shard})")
+          f"{S} from one shard in {t_pipe:.2f} s" + (
+              f" (beside seeded {extra})" if extra else "") +
+          f"; launches of the run {launches} (one shard's join: "
+          f"{per_shard})")
     print(f"train {cfg.name}: losses {[round(x, 4) for x in losses]}")
     print(f"train {cfg.name}: grad norms {[round(x, 4) for x in norms]}")
     if cfg.n_experts:
@@ -2800,8 +2907,7 @@ def phase_train_big(name: str, corpus) -> dict:
           f"{per_shard} and no model kernel (train mode runs the plain "
           "counterparts)")
     profile_run(lambda: step(state, to_device(batches[BIG_STEPS], CUDA)),
-                f"one {cfg.name} train step (B {B} x S {S})", top=10,
-                cpu=False)
+                f"one {cfg.name} train step (B {B} x S {S})", top=10)
     del api, state, step
     torch.cuda.empty_cache()
     phase_train_vs_cpu(batches, big_cfg(name, cpu_layers),
@@ -2922,6 +3028,196 @@ def phase_serve_moe():
     return launches
 
 
+# --------------------------------------------------------------------------
+# serving the vlm (internvl2-26b) and enc-dec (whisper-medium) families
+# --------------------------------------------------------------------------
+
+# internvl2-26b's prefill: 256 patches and 512 tokens, 48 query and 8 KV
+# heads of 128 (G 6); whisper-medium's encoder: 1500 frames, 16 heads of
+# 64, non-causal
+VLM_SHAPE = dict(B=8, S=768, T=768, H=48, KV=8, hd=128)
+ENC_SHAPE = dict(B=8, S=N_FRAMES, T=N_FRAMES, H=16, KV=16, hd=64)
+# serving internvl2-26b: 24 of 48 layers, 42.1 GB of float32 masters
+VLM_SERVE_LAYERS = 24
+WHISPER_BOS = 50258          # <|startoftranscript|>
+
+
+def phase_flash_family_shapes() -> dict:
+    """Phase 22: flash against its plain version at the served shapes of
+    internvl2-26b and whisper-medium, in bf16 and float32; then the two
+    prefill shapes timed.  Returns {shape: (max_abs_err, times)}."""
+    cases = [
+        ("internvl2-26b S=T 768 G 6 hd 128", VLM_SHAPE, True),
+        ("internvl2-26b ragged S=T 717", dict(VLM_SHAPE, S=717, T=717), True),
+        ("whisper-medium encoder S=T 1500 non-causal", ENC_SHAPE, False),
+        ("whisper-medium decoder BOS S=T 1", dict(ENC_SHAPE, S=1, T=1),
+         True),
+    ]
+    errs = {}
+    for i, (name, shp, causal) in enumerate(cases):
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = attn_inputs(200 + i, dtype=dtype, **shp)
+            out = ops.flash_attention(q, k, v, causal=causal)
+            want = ref.attention_ref(q, k, v, causal=causal)
+            sync()
+            err = (out.float() - want.float()).abs().max().item()
+            tol = TOL[dtype]
+            ok = bool(torch.isfinite(out).all()) and \
+                out.shape == want.shape and torch.allclose(
+                    out.float(), want.float(), rtol=tol, atol=tol)
+            print(f"kernel vs plain [{name}] {tuple(q.shape)} "
+                  f"{str(dtype)[6:]}: max_abs_err {err!r} (tol {tol}) "
+                  f"{'ok' if ok else 'MISMATCH'}")
+            check(ok, f"flash_attention vs attention_ref [{name}, "
+                  f"{str(dtype)[6:]}]")
+            if dtype == torch.bfloat16:
+                errs[name] = max(errs.get(name, 0.0), err)
+            del q, k, v, out, want
+    vlm_err = max(e for n, e in errs.items() if n.startswith("internvl"))
+    enc_err = errs[cases[2][0]]
+    return dict(internvl2=(vlm_err, phase_times(VLM_SHAPE)),
+                whisper=(enc_err, phase_times(ENC_SHAPE, causal=False)))
+
+
+@contextlib.contextmanager
+def recording_flash():
+    """A list of (S, T, H, KV, hd, causal) of each flash call in the
+    block; the wrapper still launches and counts."""
+    log, real = [], ops.flash_attention
+
+    def flash(q, k, v, *, causal=True, window=0):
+        log.append((q.shape[1], k.shape[1], q.shape[2], k.shape[2],
+                    q.shape[3], causal))
+        return real(q, k, v, causal=causal, window=window)
+    with mock.patch.object(ops, "flash_attention", flash):
+        yield log
+
+
+def serve_family_rounds(api, rounds, shape, max_new: int, offset: int,
+                        label: str) -> list:
+    """Each round's batch through ``ModelAPI.prefill`` and greedy
+    ``serve_step`` (as ``ServeEngine`` drives text models; these take
+    patches or frames beside the tokens).  ``offset``: the positions
+    before the tokens.  Returns each round's new tokens (B, max_new)."""
+    outs = []
+    for r, batch in enumerate(rounds):
+        B, S = batch["tokens"].shape
+        sync()
+        t0 = time.perf_counter()
+        logits, caches = api.prefill(batch, shape)
+        cur = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+        sync()
+        t1 = time.perf_counter()
+        steps = []
+        for i in range(max_new):
+            steps.append(cur)
+            logits, caches = api.serve_step(
+                {"tokens": cur, "positions": torch.full(
+                    (B, 1), offset + S + i, dtype=torch.int32, device=CUDA)},
+                caches)
+            cur = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+        outs.append(torch.cat(steps, 1).cpu().numpy())
+        t2 = time.perf_counter()
+        n = B * (offset + S)
+        print(f"{label} round {r}: prefill {n} positions ({B} x ({offset} "
+              f"+ {S})) in {(t1 - t0) * 1e3:.2f} ms ({n / (t1 - t0):.0f} "
+              f"positions/s) | decode {max_new} steps in "
+              f"{(t2 - t1) * 1e3:.2f} ms ({(t2 - t1) / max_new * 1e3:.3f} "
+              f"ms/step, {B * max_new / (t2 - t1):.0f} tok/s)")
+        del caches
+    return outs
+
+
+def phase_serve_family(name: str) -> dict:
+    """Phases 23 (internvl2-26b, 24 of 48 layers) and 24 (whisper-medium
+    whole): 2 rounds of batch 8 with seeded patches or frames, 32 new
+    tokens each; launches and shapes of flash counted, then the checks of
+    phase 20 (kernel against plain path in bf16 and float32, every launch
+    against its plain version, decode against prefill).  Returns the
+    launches of the 2 rounds."""
+    cfg = big_cfg(name, VLM_SERVE_LAYERS if name == "internvl2-26b"
+                  else None)
+    t0 = time.perf_counter()
+    api = ModelAPI(cfg, device=CUDA)
+    api.model.init(torch.Generator(device=CUDA).manual_seed(0))
+    sync()
+    n = sum(p.numel() for p in api.model.parameters())
+    print(f"serve: {cfg.name} {layout(api.model)}, d_model {cfg.d_model}, "
+          f"heads {cfg.n_heads}/{cfg.n_kv_heads} of {cfg.hd}, {n} parameters"
+          f" in float32, drawn on the card in {time.perf_counter() - t0:.1f}"
+          f" s; device memory allocated "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    batch, max_new = 8, 32
+    rng = np.random.default_rng(4)
+    g = torch.Generator(device=CUDA).manual_seed(5)
+    rounds = []
+    for _ in range(2):
+        if cfg.is_encdec:
+            tokens = torch.full((batch, 1), WHISPER_BOS, dtype=torch.int32,
+                                device=CUDA)
+        else:
+            tokens = torch.from_numpy(pad_prompts(prompts(
+                rng, cfg, batch, 256, 512, max_new), batch)).to(CUDA)
+        rounds.append(dict(extra_inputs(cfg, batch, g), tokens=tokens))
+    offset = 0 if cfg.is_encdec else cfg.vision_tokens
+    # an enc-dec's cache holds the decoder's tokens; JAX's input_specs ties
+    # its length to the frames
+    seq = N_FRAMES if cfg.is_encdec else 1280
+    shape = ShapeConfig("serve", "prefill", seq, batch)
+    t0 = time.perf_counter()
+    with recording_flash() as calls:
+        ops.reset_launch_counts()
+        outs = serve_family_rounds(api, rounds, shape, max_new, offset,
+                                   cfg.name)
+        launches = dict(ops.launch_counts)
+    per = cfg.n_layers + cfg.encoder_layers
+    print(f"{cfg.name} launch counts over 2 prefills: {launches}; flash "
+          f"calls (S, T, H, KV, hd, causal) and their counts: "
+          f"{ {c: calls.count(c) for c in sorted(set(calls))} }")
+    check(launches == dict(dict.fromkeys(launches, 0),
+                           flash_attention=per * 2),
+          f"{cfg.name}: launches {launches} != flash_attention {per} x 2")
+    for r, b in enumerate(rounds):
+        S = b["tokens"].shape[1] + offset
+        want = [(S, S, cfg.n_heads, cfg.n_kv_heads, cfg.hd, True)] \
+            * cfg.n_layers
+        if cfg.is_encdec:
+            want = [(N_FRAMES, N_FRAMES, cfg.n_heads, cfg.n_kv_heads,
+                     cfg.hd, False)] * cfg.encoder_layers + want
+        check(calls[r * per:(r + 1) * per] == want,
+              f"{cfg.name}: round {r}'s flash calls are not the served "
+              "shapes")
+    check_tokens(outs, 2 * batch * max_new, cfg.vocab, cfg.name)
+    secs = {"rounds": time.perf_counter() - t0}
+    b0 = rounds[0]
+    extra = {k: v for k, v in b0.items() if k != "tokens"}
+    t0 = time.perf_counter()
+    kernel_vs_plain_prefill(api, b0["tokens"], shape,
+                            [(attention, "_attend", plain_attend)],
+                            cfg.name, outs[0][:, 0].tolist(), extra=extra)
+    secs["kernel vs plain"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    each_launch_vs_plain(api, b0["tokens"], shape,
+                         [("flash_attention", ref.attention_ref, TOL)],
+                         cfg.name, extra=extra)
+    secs["each launch"] = time.perf_counter() - t0
+    two = {k: v[:2] for k, v in extra.items()}
+    t0 = time.perf_counter()
+    decode_vs_prefill(api, b0["tokens"][:2], shape,
+                      f"{cfg.name} (2 sequences)", extra=two, offset=offset)
+    secs["decode vs prefill"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    profile_run(lambda: serve_family_rounds(api, rounds[1:], shape, max_new,
+                                            offset, f"{cfg.name} warm"),
+                f"one warm {cfg.name} round")
+    secs["profile"] = time.perf_counter() - t0
+    print(f"{cfg.name} serving: seconds {secs}")
+    del api, rounds, extra, two
+    torch.cuda.empty_cache()
+    return launches
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAILED: torch.cuda.is_available() is False: chip_smoke.py "
@@ -2964,7 +3260,7 @@ def main() -> int:
         timed("phase 17", phase_checkpoint, root, train_state)
         del train_api, train_state, train_batches
         torch.cuda.empty_cache()
-        for n, name in zip((18, 19, 21), BIG_TRAIN):
+        for n, name in zip((18, 19, 21, 25, 26), BIG_TRAIN):
             train_paths[f"train {name}"] = timed(f"phase {n}",
                                                  phase_train_big, name,
                                                  corpus)
@@ -2979,10 +3275,16 @@ def main() -> int:
     rgemma_launches = timed("phase 9", phase_serve_rgemma)
     moe_launches = timed("phase 20", phase_serve_moe)
     hd128_times = timed("phase 20 times", phase_times, MOE_SHAPE)
+    family = timed("phase 22", phase_flash_family_shapes)
+    family_launches = {name: timed(f"phase {n}", phase_serve_family, name)
+                       for n, name in ((23, "internvl2-26b"),
+                                       (24, "whisper-medium"))}
     print(f"device: {smi_line()}")
     flash_paths = {"smollm-135m": launches["flash_attention"],
                    "recurrentgemma-9b": rgemma_launches["flash_attention"],
                    "qwen3-moe-30b-a3b": moe_launches["flash_attention"],
+                   **{k: v["flash_attention"]
+                      for k, v in family_launches.items()},
                    **prompt_flash}
     kernels = [dict(
         name="flash_attention", route="cuda",
@@ -2994,7 +3296,13 @@ def main() -> int:
                    serving=rec_times["flash_hd256_serving"],
                    long=rec_times["flash_hd256_long"]),
         hd128=dict(max_abs_err=hd128_err, serving=hd128_times,
-                   shape=MOE_SHAPE))]
+                   shape=MOE_SHAPE),
+        internvl2=dict(max_abs_err=family["internvl2"][0],
+                       serving=family["internvl2"][1], shape=VLM_SHAPE,
+                       causal=True),
+        whisper_encoder=dict(max_abs_err=family["whisper"][0],
+                             serving=family["whisper"][1], shape=ENC_SHAPE,
+                             causal=False))]
     for name, line, launched in (
             ("wkv6", "src/repro/kernels/wkv6.py:27", rwkv_launches),
             ("rglru_scan", "src/repro/kernels/rglru_scan.py:21",

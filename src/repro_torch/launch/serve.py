@@ -16,11 +16,15 @@ data plane (file-backed store + SIPC wire references):
         --batch 8 --max-seq 1024 --max-new 32 --prompt-shards 4 \
         --prompts-per-shard 32 --workers 2 --workers-mode process
 
-Weights are random, drawn on the serving device by a ``torch.Generator``
-of that device seeded with 0 (a full-width model never passes through
-host memory), and prompts are drawn with numpy's generator seeded with 0,
-as in the JAX package's ``launch/serve.py``.  Without ``--device cpu`` it
-runs on CUDA, and raises when no card is present.
+A vlm model (internvl2-26b) serves text-only prompts, as the JAX
+package's launcher does; an enc-dec model (whisper-medium) raises
+``ValueError``: its prefill needs frame embeddings (ROADMAP.md queue 3,
+item s).  Weights are random, drawn on the serving device by a
+``torch.Generator`` of that device seeded with 0 (a full-width model
+never passes through host memory), and prompts are drawn with numpy's
+generator seeded with 0, as in the JAX package's ``launch/serve.py``.
+Without ``--device cpu`` it runs on CUDA, and raises when no card is
+present.
 """
 
 from __future__ import annotations
@@ -76,11 +80,17 @@ def main(argv=None) -> ServeEngine:
                          "versions")
     a = ap.parse_args(argv)
 
+    arch = get_arch(a.arch)
+    if arch.is_encdec:
+        raise ValueError(
+            f"{arch.name}: serving needs 'frames' (the encoder's input), "
+            "which this launcher's token prompts do not give, and the JAX "
+            "package's launcher fails here too (ROADMAP.md queue 3, item "
+            "s); drive ModelAPI.prefill and serve_step with frames")
     device = resolve_device(a.device)
     # the prompt source's Zerrow core (and its Flight workers) run their
     # relational kernels on the same device
     kdispatch.set_device(device.type)
-    arch = get_arch(a.arch)
     if a.smoke:
         arch = smoke_variant(arch)
     if a.kv_int8:

@@ -12,7 +12,10 @@ a ``torch.Generator`` of that device seeded with 0.  The corpus is made
 under ``$TMPDIR/zerrow-corpus`` when that directory is empty.  Without
 ``--device cpu`` it runs on CUDA, and raises when no card is present;
 the pipeline's corpus join runs its relational kernels on the same
-device.  A step's printed time ends when its loss reaches the host.
+device.  The vlm and enc-dec models (internvl2-26b, whisper-medium)
+raise ``ValueError``: their batches need patch or frame embeddings that
+the text pipeline does not make (ROADMAP.md queue 3, item s).  A step's
+printed time ends when its loss reaches the host.
 """
 
 from __future__ import annotations
@@ -44,9 +47,17 @@ def train_loop(arch_name: str, *, steps: int = 100, batch: int = 8,
                data_workers: int = 1, workers_mode: str = "thread",
                reader_threads: int = None, cache_root: str = None,
                device="cuda"):
+    arch = get_arch(arch_name)
+    if arch.is_encdec or arch.vision_tokens:
+        need = "frames" if arch.is_encdec else "patches"
+        raise ValueError(
+            f"{arch.name}: a train batch needs {need!r}, which the text "
+            "pipeline does not give, and the JAX package's launcher fails "
+            "here too (ROADMAP.md queue 3, item s); train it through "
+            f"ModelAPI.train_loss or make_train_step with {need} in the "
+            "batch")
     device = resolve_device(device)
     kdispatch.set_device(device.type)
-    arch = get_arch(arch_name)
     if smoke:
         arch = smoke_variant(arch)
     arch = dataclasses.replace(arch, vocab=max(arch.vocab, 257))

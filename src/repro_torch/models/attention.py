@@ -1,6 +1,8 @@
 """GQA attention: prefill through the hand-written flash kernel, training
 and decode in plain PyTorch (decode over a preallocated KV cache updated
-in place).
+in place).  Cross-attention (``kv_override``, the enc-dec decoder's) runs
+``chunked_attention`` or ``decode_attention`` in every mode, as the JAX
+package never sends it to its kernel.
 
 ``chunked_attention`` is the JAX package's chunked online-softmax path
 (its default ``attention_impl="xla"``) in plain PyTorch.  Train mode runs
@@ -15,7 +17,7 @@ a served prefill in place of the kernel.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -145,18 +147,27 @@ def dequant_kv(q, scale, dtype):
 
 
 def attn_apply(p, x, *, cfg, mode: str, cache: Optional[Dict] = None,
-               pos=None, window: int = 0, causal: bool = True):
+               pos=None, window: int = 0, causal: bool = True,
+               kv_override: Optional[Tuple] = None):
     """Full attention sub-block: qkv proj + rope + attend + out proj.
 
     p: holds ``wq`` (d,H,hd), ``wk``/``wv`` (d,KV,hd), ``wo`` (H*hd,d).
     mode: 'train' | 'prefill' (writes the cache) | 'decode' (appends).
     cache: {"k": (B,T,KV,hd), "v": ..., "len": int[, "k_scale",
     "v_scale": (B,T,KV)]}, updated in place (the port's counterpart of
-    JAX's donated cache).  Returns (out, cache).
+    JAX's donated cache).  kv_override: (k, v) of cross-attention, already
+    projected (B,T,KV,hd): no rope, no cache, and no causal mask.
+    Returns (out, cache).
     """
     B, S, d = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     q = (x @ p.wq.reshape(d, H * hd).to(x.dtype)).view(B, S, H, hd)
+    if kv_override is not None:
+        k, v = kv_override
+        out = decode_attention(q, k, v, k.shape[1]) if mode == "decode" \
+            else chunked_attention(q, k, v, causal=False,
+                                   chunk=cfg.attn_chunk)
+        return out.reshape(B, S, H * hd) @ p.wo.to(x.dtype), cache
     k = (x @ p.wk.reshape(d, KV * hd).to(x.dtype)).view(B, S, KV, hd)
     v = (x @ p.wv.reshape(d, KV * hd).to(x.dtype)).view(B, S, KV, hd)
     if pos is None:

@@ -2,15 +2,17 @@
 the port's.
 
 The JAX pytree comes as nested dicts of numpy arrays (``jax.tree.map(
-np.asarray, params)``), so this module needs no JAX.  ``params["blocks"]``
-holds one stacked subtree per block kind, ``b0`` .. ``b{k-1}``, with a
-leading group axis; group g's kind i becomes the port's sub-block
-``blocks.{g * k + i}``.  Names map leaf for leaf (a norm leaf such as
-``ln1`` becomes the norm's ``weight``; RWKV leaves nest as ``time.*`` and
-``channel.*``, a MoE's as ``ffn.router``, ``ffn.wi`` (E, d, f) and so on,
-stacked to (groups, E, d, f) in the JAX layout).  Values are copied as
-they are (float32 stays float32), and a missing, extra or misshapen leaf
-raises.
+np.asarray, params)``), so this module needs no JAX.  A ``DecoderLM``'s
+``params["blocks"]`` holds one stacked subtree per block kind, ``b0`` ..
+``b{k-1}``, with a leading group axis; group g's kind i becomes the
+port's sub-block ``blocks.{g * k + i}``.  An ``EncDecLM``'s
+``enc_blocks`` and ``dec_blocks`` are each one subtree stacked over its
+layers; layer l becomes ``enc_blocks.{l}`` or ``dec_blocks.{l}``.  Names
+map leaf for leaf (a norm leaf such as ``ln1`` becomes the norm's
+``weight``; RWKV leaves nest as ``time.*`` and ``channel.*``, a MoE's as
+``ffn.router``, ``ffn.wi`` (E, d, f) and so on, stacked to (groups, E, d,
+f) in the JAX layout).  Values are copied as they are (float32 stays
+float32), and a missing, extra or misshapen leaf raises.
 
 A JAX leaf is the unit the optimizers decide and reduce over
 (``train/optimizer.py``), so ``jax_leaves`` groups the port's parameters
@@ -30,9 +32,11 @@ import torch
 from torch import nn
 
 from ..configs.base import ArchConfig
-from .lm import DecoderLM, block_kinds, n_groups
+from .lm import block_kinds, n_groups
 
-_NORMS = ("ln1", "ln2", "final_norm")
+_NORMS = ("ln1", "ln2", "lnx", "enc_norm", "final_norm")
+# JAX subtrees stacked over the layers (or the layer groups)
+_STACKED = ("blocks", "enc_blocks", "dec_blocks")
 
 
 def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
@@ -46,31 +50,46 @@ def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
     return out
 
 
+def _unstack(sd: Dict[str, torch.Tensor], tree: Mapping[str, Any],
+             where: str, names: List[str]) -> None:
+    """Each leaf of ``tree``, stacked over as many layers or groups as
+    ``names`` holds, into ``sd``: slice g under ``names[g]`` + its port
+    name."""
+    for key, stacked in _flatten(tree).items():
+        stacked = np.asarray(stacked)
+        if stacked.shape[0] != len(names):
+            raise ValueError(f"{where}.{key}: leading axis "
+                             f"{stacked.shape[0]} != {len(names)} layers "
+                             "or groups")
+        for g, name in enumerate(names):
+            sd[f"{name}.{key}"] = torch.from_numpy(np.array(stacked[g]))
+
+
 def state_dict_from_jax(params: Mapping[str, Any],
                         cfg: ArchConfig) -> Dict[str, torch.Tensor]:
-    """The port's state dict for a JAX ``DecoderLM`` pytree of ``cfg``."""
+    """The port's state dict for a JAX ``DecoderLM`` or ``EncDecLM``
+    pytree of ``cfg``."""
+    top = {key: v for key, v in params.items() if key not in _STACKED}
+    sd = {key: torch.from_numpy(np.array(v))
+          for key, v in _flatten(top).items()}
+    if cfg.is_encdec:
+        for key, n in (("enc_blocks", cfg.encoder_layers),
+                       ("dec_blocks", cfg.n_layers)):
+            _unstack(sd, params[key], key, [f"{key}.{l}" for l in range(n)])
+        return sd
     k, groups = len(block_kinds(cfg)), n_groups(cfg)
     blocks = params["blocks"]
     if set(blocks) != {f"b{i}" for i in range(k)}:
         raise ValueError(f"{cfg.name}: block kinds b0..b{k - 1} expected, "
                          f"got {sorted(blocks)}")
-    top = {key: v for key, v in params.items() if key != "blocks"}
-    sd = {key: torch.from_numpy(np.array(v))
-          for key, v in _flatten(top).items()}
     for i in range(k):
-        for key, stacked in _flatten(blocks[f"b{i}"]).items():
-            stacked = np.asarray(stacked)
-            if stacked.shape[0] != groups:
-                raise ValueError(f"blocks.b{i}.{key}: leading group axis "
-                                 f"{stacked.shape[0]} != {groups} groups")
-            for g in range(groups):
-                sd[f"blocks.{g * k + i}.{key}"] = torch.from_numpy(
-                    np.array(stacked[g]))
+        _unstack(sd, blocks[f"b{i}"], f"blocks.b{i}",
+                 [f"blocks.{g * k + i}" for g in range(groups)])
     return sd
 
 
-def load_jax_params(model: DecoderLM,
-                    params: Mapping[str, Any]) -> DecoderLM:
+def load_jax_params(model: nn.Module,
+                    params: Mapping[str, Any]) -> nn.Module:
     """Copy a JAX pytree of numpy arrays into ``model`` (on its device)."""
     sd = state_dict_from_jax(params, model.cfg)
     own = model.state_dict()
@@ -89,8 +108,9 @@ def load_jax_params(model: DecoderLM,
 
 @dataclass
 class Leaf:
-    """One leaf of the JAX pytree: its path (``"blocks/b0/mix/wq"``) and
-    the port's parameters it stacks, one per group for a block leaf."""
+    """One leaf of the JAX pytree: its path (``"blocks/b0/mix/wq"``,
+    ``"dec_blocks/cross/wk"``) and the port's parameters it stacks, one
+    per layer group (or layer) for a leaf of a stacked subtree."""
     path: str
     params: List[nn.Parameter]
     stacked: bool
@@ -104,20 +124,25 @@ class Leaf:
 
 
 def _jax_path(port_name: str, k: int) -> Tuple[str, int]:
-    """(JAX leaf path, group) of a port parameter name."""
+    """(JAX leaf path, layer group) of a port parameter name; the group
+    is -1 outside the stacked subtrees.  ``k``: the decoder LM's block
+    kinds a group (``blocks.{j}`` is group j // k's kind j % k); an
+    enc-dec's ``enc_blocks.{l}`` and ``dec_blocks.{l}`` are layer l."""
     parts = port_name.split(".")
     if parts[-1] == "weight" and parts[-2] in _NORMS:
         parts = parts[:-1]
-    if parts[0] != "blocks":
+    if parts[0] not in _STACKED:
         return "/".join(parts), -1
     j = int(parts[1])
+    if parts[0] != "blocks":
+        return "/".join([parts[0]] + parts[2:]), j
     return "/".join(["blocks", f"b{j % k}"] + parts[2:]), j // k
 
 
-def jax_leaves(model: DecoderLM) -> List[Leaf]:
-    """The port's parameters grouped by JAX leaf, in the order
-    ``jax.tree.leaves`` gives the JAX pytree (dict keys sorted at every
-    level)."""
+def jax_leaves(model: nn.Module) -> List[Leaf]:
+    """The port's parameters (of a ``DecoderLM`` or an ``EncDecLM``)
+    grouped by JAX leaf, in the order ``jax.tree.leaves`` gives the JAX
+    pytree (dict keys sorted at every level)."""
     k = len(block_kinds(model.cfg))
     groups: Dict[str, Dict[int, nn.Parameter]] = {}
     for name, p in model.named_parameters():
@@ -127,7 +152,7 @@ def jax_leaves(model: DecoderLM) -> List[Leaf]:
     for path in sorted(groups, key=lambda p: p.split("/")):
         by_g = groups[path]
         out.append(Leaf(path, [by_g[g] for g in sorted(by_g)],
-                        stacked=path.startswith("blocks/")))
+                        stacked=path.split("/")[0] in _STACKED))
     return out
 
 
@@ -163,15 +188,16 @@ def to_host(tree):
     return tree.detach().to("cpu", copy=True).numpy()
 
 
-def params_to_jax(model: DecoderLM) -> Dict[str, Any]:
-    """The JAX ``DecoderLM.init`` pytree (numpy) of the port's weights."""
+def params_to_jax(model: nn.Module) -> Dict[str, Any]:
+    """The JAX ``DecoderLM.init`` or ``EncDecLM.init`` pytree (numpy) of
+    the port's weights."""
     return nest({leaf.path: to_host(leaf.stack([p.detach()
                                                 for p in leaf.params]))
                  for leaf in jax_leaves(model)})
 
 
 def train_state_to_jax(state: Mapping[str, Any]) -> Dict[str, Any]:
-    """The port's train state ({"params": DecoderLM, "opt", "step"}) as
+    """The port's train state ({"params": the model, "opt", "step"}) as
     the JAX package's train state pytree of numpy arrays: params stacked
     by group, the optimizer state nested by leaf path, int32 counters."""
     opt = {key: nest(v) if isinstance(v, Mapping) else v
@@ -181,7 +207,7 @@ def train_state_to_jax(state: Mapping[str, Any]) -> Dict[str, Any]:
 
 
 def train_state_from_jax(tree: Mapping[str, Any],
-                         model: DecoderLM) -> Dict[str, Any]:
+                         model: nn.Module) -> Dict[str, Any]:
     """A port train state from a JAX train state pytree of numpy arrays:
     the params copied into ``model`` (on its device), the optimizer state
     and the step as tensors on the model's device."""

@@ -1,13 +1,16 @@
-"""Decoder-only LM: the dense, moe (attention, then a routed MoE in place
-of the MLP), hybrid (RG-LRU + local attention) and ssm (RWKV-6) families,
-each of which serves and trains.
+"""Decoder-only LM: the dense, vlm (dense with a prefix of projected patch
+embeddings), moe (attention, then a routed MoE in place of the MLP),
+hybrid (RG-LRU + local attention) and ssm (RWKV-6) families, each of
+which serves and trains.  The audio family is ``encdec.EncDecLM``.
 
 The JAX package scans stacked parameter groups over the layers (a group is
 one ``block_kinds`` repetition); this module loops over an
 ``nn.ModuleList`` of sub-blocks, group g's kind i at index g * k + i.
 Caches are preallocated per sub-block and updated in place (a moe
-sub-block's cache is its attention's).  The vlm and audio families raise
-``NotImplementedError`` naming the ROADMAP item that brings them.
+sub-block's cache is its attention's).  A vlm model's ``vision_proj``
+(d, d) maps the patch embeddings (the InternViT frontend is a stub in
+both packages), which go before the text in train and prefill; positions
+run over patches and text, and decode embeds tokens alone.
 
 Modes: 'train' (no cache; ``loss_fn``), 'prefill' (populate caches,
 return last-token logits), 'decode' (one token, in-place cache update).
@@ -38,9 +41,6 @@ from .layers import (MLP, RMSNorm, dense_init_, rms_norm, softmax_xent,
 from .moe import AUX_KEYS, MoE
 from .rglru import RGLRU
 from .rwkv6 import RWKVBlock
-
-# families still to port -> the ROADMAP.md queue-1 item that brings them
-_LATER_FAMILIES = {"vlm": 7, "audio": 7}
 
 
 def block_kinds(cfg: ArchConfig) -> Tuple[str, ...]:
@@ -104,11 +104,9 @@ class Block(nn.Module):
 class DecoderLM(nn.Module):
     def __init__(self, cfg: ArchConfig, device="cuda"):
         super().__init__()
-        if cfg.family in _LATER_FAMILIES:
-            item = _LATER_FAMILIES[cfg.family]
-            raise NotImplementedError(
-                f"{cfg.name}: family {cfg.family!r} is not ported yet "
-                f"(ROADMAP.md queue 1, item {item})")
+        if cfg.is_encdec:
+            raise ValueError(f"{cfg.name}: an encoder-decoder; build it as "
+                             "encdec.EncDecLM (ModelAPI does)")
         dev = resolve_device(device)
         self.cfg = cfg
         self.kinds = block_kinds(cfg)
@@ -125,6 +123,9 @@ class DecoderLM(nn.Module):
         self.lm_head = None if cfg.tie_embeddings else nn.Parameter(
             torch.empty(cfg.d_model, cfg.vocab, dtype=self.pdtype,
                         device=dev))
+        self.vision_proj = nn.Parameter(torch.empty(
+            cfg.d_model, cfg.d_model, dtype=self.pdtype, device=dev)) \
+            if cfg.vision_tokens else None
 
     @property
     def device(self) -> torch.device:
@@ -140,11 +141,19 @@ class DecoderLM(nn.Module):
             blk.init(generator)
         if self.lm_head is not None:
             dense_init_(self.lm_head, self.cfg.d_model, generator)
+        if self.vision_proj is not None:
+            dense_init_(self.vision_proj, self.cfg.d_model, generator)
         return self
 
     # -- embedding / head -------------------------------------------------
-    def embed_inputs(self, tokens):
-        return F.embedding(tokens, self.embed).to(self.cdtype)
+    def embed_inputs(self, tokens, patches=None):
+        """Token embeddings in the compute dtype; with ``patches`` (B, V, d)
+        on a vlm model, ``patches @ vision_proj`` before them."""
+        x = F.embedding(tokens, self.embed).to(self.cdtype)
+        if self.vision_proj is not None and patches is not None:
+            pv = patches.to(self.cdtype) @ self.vision_proj.to(self.cdtype)
+            x = torch.cat([pv, x], dim=1)
+        return x
 
     def head(self, x):
         x = rms_norm(x, self.final_norm.weight, self.cfg.norm_eps)
@@ -185,15 +194,21 @@ class DecoderLM(nn.Module):
     # -- public entry points ------------------------------------------------
     def loss_fn(self, batch):
         """Train forward: batch {tokens (B,S), labels (B,S)[, loss_mask
-        (B,S)]}.  Returns (loss, metrics {"loss"[, the MoE metrics],
-        "total_loss"}): the mean token cross entropy with z-loss 1e-4, over
-        the tokens the mask keeps when it is given; the moe family adds
-        0.01 x its load-balancing loss and 0.001 x its router z-loss, each
-        averaged over the layer groups, and reports the three MoE metrics
-        so averaged."""
-        x = self.embed_inputs(batch["tokens"])
+        (B,S)][, patches (B,V,d) for the vlm family]}.  Returns (loss,
+        metrics {"loss"[, the MoE metrics], "total_loss"}): the mean token
+        cross entropy with z-loss 1e-4, over the text tokens (the mask's
+        when it is given); the moe family adds 0.01 x its load-balancing
+        loss and 0.001 x its router z-loss, each averaged over the layer
+        groups, and reports the three MoE metrics so averaged."""
+        cfg = self.cfg
+        if cfg.vision_tokens and "patches" not in batch:
+            raise ValueError(f"{cfg.name}: a train batch needs 'patches' "
+                             f"(B, {cfg.vision_tokens}, {cfg.d_model})")
+        x = self.embed_inputs(batch["tokens"], batch.get("patches"))
         pos = torch.arange(x.shape[1], device=x.device)[None, :]
         x, aux, _ = self.backbone_aux(x, "train", None, pos)
+        if cfg.vision_tokens:
+            x = x[:, cfg.vision_tokens:]
         tok_loss = softmax_xent(self.head(x), batch["labels"])
         mask = batch.get("loss_mask")
         if mask is None:
@@ -260,11 +275,13 @@ class DecoderLM(nn.Module):
 
     @torch.inference_mode()
     def prefill(self, batch, cache_len: int):
-        """Process the prompt; returns (last_logits (B,1,V), caches)."""
+        """Process the prompt {tokens (B,S)[, patches (B,V,d)]}: patches
+        and text fill the caches' first V + S places.  Returns
+        (last_logits (B,1,V), caches)."""
         tokens = batch["tokens"]
-        B, S = tokens.shape
-        x = self.embed_inputs(tokens)
-        pos = torch.arange(S, device=x.device)[None, :]
+        B = tokens.shape[0]
+        x = self.embed_inputs(tokens, batch.get("patches"))
+        pos = torch.arange(x.shape[1], device=x.device)[None, :]
         caches = self.init_cache(B, cache_len)
         x, caches = self.backbone(x, "prefill", caches, pos)
         return self.head(x[:, -1:]), caches

@@ -17,7 +17,7 @@ The checkpoint store applies the paper's ideas to training state across
 This is the PyTorch port's copy of the JAX package's
 ``runtime/checkpoint.py``.  A snapshot is written in the JAX package's
 layout, with the same manifest paths: ``save`` takes the port's train
-state (``{"params": DecoderLM, "opt", "step"}``), fetches it to the host
+state (``{"params": the model, "opt", "step"}``), fetches it to the host
 once and writes it as the JAX train state pytree
 (``models.convert.train_state_to_jax``: params stacked by layer group),
 so either package restores the other's snapshots.  Any other pytree of

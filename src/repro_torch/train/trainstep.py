@@ -33,8 +33,10 @@ def _compute_params(leaves: List[Leaf], cast_bf16: bool) -> Dict:
     """name -> the tensor the forward uses in place of each parameter.
     ``cast_bf16`` casts the float32 leaves of two or more dims in the
     JAX layout to bf16, as the JAX step does once per step: every block
-    parameter (its stacked leaf has a group axis, so a block's norm weight
-    too), the embedding and the head, and not the final norm."""
+    parameter (its stacked leaf has a group or layer axis, so a block's
+    norm weight too, an enc-dec's encoder and decoder blocks alike), the
+    embedding, the head, ``vision_proj`` and ``dec_pos``, and not the
+    final or encoder norm."""
     out = {}
     for leaf in leaves:
         cast = cast_bf16 and (leaf.stacked or leaf.params[0].dim() >= 2)
@@ -55,8 +57,9 @@ def make_train_step(api, *, peak_lr: float = 3e-4, warmup: int = 100,
     """Returns train_step(state, batch) -> (state, metrics).
 
     ``batch`` holds tensors on the model's device: {tokens, labels[,
-    loss_mask]}.  ``accum`` > 1 splits it into that many microbatches and
-    averages their float32 grads and metrics.  ``cast_bf16``: the forward
+    loss_mask][, patches | frames]}.  ``accum`` > 1 splits each of them
+    into that many microbatches and averages their float32 grads and
+    metrics.  ``cast_bf16``: the forward
     and backward run on bf16 copies of the float32 masters
     (``_compute_params``), and the update applies to the masters.
     metrics: loss, total_loss, grad_norm (the L2 norm of all float32

@@ -8,8 +8,10 @@ case, and the relational ops on the card against the same ops on the CPU;
 read-only inputs at the kdispatch edge and the plan-compiled star query
 through the executor's threads and Flight workers; the row gather and
 dictionary decode bit for bit, the gradient guard of every wrapper
-that takes floats, and a train step of the ssm, hybrid and moe families
-that reaches no kernel wrapper.  Skips without a CUDA card; run it
+that takes floats, and a train step of the ssm, hybrid, moe, vlm and
+enc-dec families that reaches no kernel wrapper; flash at the vlm's and
+the enc-dec's served shapes, and those families' prefill and decode on
+the card against the CPU.  Skips without a CUDA card; run it
 there with
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -21,6 +23,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.configs import ShapeConfig  # noqa: E402
 from repro_torch.core import kdispatch, ops as rops  # noqa: E402
 from repro_torch.core.arrow import Table  # noqa: E402
 from repro_torch.kernels import ops, ref, take_gather  # noqa: E402
@@ -88,6 +91,33 @@ def test_kernel_matches_plain(cuda, dtype, B, S, T, H, KV, hd, causal,
     out = ops.flash_attention(q, k, v, causal=causal, window=window)
     assert ops.launch_counts["flash_attention"] == before + 1
     want = ref.attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == want.shape
+    torch.testing.assert_close(out.float(), want.float(), rtol=TOL[dtype],
+                               atol=TOL[dtype])
+
+
+# the vlm and enc-dec families' served shapes, cut in batch:
+# internvl2-26b's GQA 48/8 (G 6) at hd 128 over a ragged text length,
+# whisper-medium's non-causal encoder (1500 frames, MHA 16/16, hd 64) and
+# its decoder's BOS prefill (S = T = 1)
+SERVED_SHAPES = [  # (B, S, T, H, KV, hd, causal)
+    (1, 263 + 256, 263 + 256, 48, 8, 128, True),
+    (1, 1500, 1500, 16, 16, 64, False),
+    (8, 1, 1, 16, 16, 64, True),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=lambda d: str(d)[6:])
+@pytest.mark.parametrize("B,S,T,H,KV,hd,causal", SERVED_SHAPES)
+def test_kernel_at_the_vlm_and_encdec_shapes(cuda, dtype, B, S, T, H, KV,
+                                             hd, causal):
+    g = torch.Generator(device=cuda).manual_seed(S + H)
+    q, k, v = (torch.randn(s, generator=g, device=cuda).to(dtype)
+               for s in ((B, S, H, hd), (B, T, KV, hd), (B, T, KV, hd)))
+    out = ops.flash_attention(q, k, v, causal=causal)
+    want = ref.attention_ref(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert out.dtype == dtype and out.shape == want.shape
     torch.testing.assert_close(out.float(), want.float(), rtol=TOL[dtype],
@@ -669,3 +699,77 @@ def test_train_mode_on_the_card_reaches_no_kernel_wrapper(cuda, monkeypatch,
     state, m = make_train_step(api, warmup=1)(state, batch)
     assert all(torch.isfinite(m[k]) for k in ("loss", "grad_norm"))
     assert dict(ops.launch_counts) == before
+
+
+def family_inputs(api, kind, seq, batch, seed):
+    """CPU inputs of ``input_specs``: seeded normals for patches and
+    frames, tokens in [1, vocab)."""
+    g = torch.Generator().manual_seed(seed)
+    return {k: torch.randint(1, api.cfg.vocab, spec.shape, generator=g,
+                             dtype=torch.int32) if spec.dtype == torch.int32
+            else torch.randn(spec.shape, generator=g).to(spec.dtype)
+            for k, spec in api.input_specs(ShapeConfig(
+                "s", kind, seq, batch)).items()}
+
+
+@pytest.mark.parametrize("name", ["internvl2-26b", "whisper-medium"])
+def test_family_prefill_and_decode_on_the_card_match_the_cpu(cuda, name):
+    """Each new family's smoke variant in float32 with the same weights
+    on both devices: prefill (patches or frames through the flash kernel
+    on the card, its plain version on the CPU), then 3 decode steps,
+    logits within 2e-4; a prefill launches flash once per self-attention
+    layer (encoder and decoder for the enc-dec)."""
+    from repro_torch.configs import get_arch, smoke_variant
+    from repro_torch.models.api import ModelAPI
+    cfg = smoke_variant(get_arch(name))
+    apis = {"cpu": ModelAPI(cfg, device="cpu"),
+            "cuda": ModelAPI(cfg, device=cuda)}
+    apis["cpu"].model.init(torch.Generator().manual_seed(0))
+    apis["cuda"].model.load_state_dict(apis["cpu"].model.state_dict())
+    batch = family_inputs(apis["cpu"], "prefill", 40, 2, 1)
+    nxt = torch.randint(1, cfg.vocab, (3, 2, 1), dtype=torch.int32,
+                        generator=torch.Generator().manual_seed(2))
+    S = batch["tokens"].shape[1] + cfg.vision_tokens
+    shape = ShapeConfig("p", "prefill", 48, 2)
+    out = {}
+    for dev, api in apis.items():
+        before = ops.launch_counts["flash_attention"]
+        logits, caches = api.prefill({k: v.to(api.device)
+                                      for k, v in batch.items()}, shape)
+        assert ops.launch_counts["flash_attention"] - before == (
+            0 if dev == "cpu" else cfg.n_layers + cfg.encoder_layers)
+        out[dev] = [logits.cpu()]
+        for i in range(3):
+            logits, caches = api.serve_step(
+                {"tokens": nxt[i].to(api.device),
+                 "positions": torch.full((2, 1), S + i, dtype=torch.int32,
+                                         device=api.device)}, caches)
+            out[dev].append(logits.cpu())
+    for a, b in zip(out["cuda"], out["cpu"]):
+        torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("name", ["internvl2-26b", "whisper-medium"])
+def test_vlm_and_encdec_train_on_the_card_reach_no_kernel_wrapper(
+        cuda, monkeypatch, name):
+    """A bf16 train step with remat of each new family's smoke variant on
+    the card, patches or frames in the batch, with the flash wrapper
+    replaced by one that raises: the encoder trains through
+    chunked_attention, and the loss and grad norm are finite."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch, smoke_variant
+    from repro_torch.models.api import ModelAPI
+    from repro_torch.train.trainstep import init_state, make_train_step
+    cfg = dataclasses.replace(smoke_variant(get_arch(name)),
+                              dtype="bfloat16", remat=True)
+    api = ModelAPI(cfg, device=cuda)
+    state = init_state(api, torch.Generator(device=cuda).manual_seed(0))
+
+    def refuse(*a, **k):
+        raise AssertionError("train mode reached a kernel wrapper")
+    monkeypatch.setattr(ops, "flash_attention", refuse)
+    batch = {k: v.to(cuda) for k, v in family_inputs(
+        api, "train", 56, 2, 2).items()}
+    state, m = make_train_step(api, warmup=1)(state, batch)
+    assert all(torch.isfinite(m[k]) for k in ("loss", "grad_norm"))

@@ -128,9 +128,21 @@ def test_weights_convert_leaf_for_leaf():
 
 
 @pytest.mark.parametrize("name", ["internvl2-26b", "whisper-medium"])
-def test_other_families_name_their_roadmap_item(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        ModelAPI(configs.smoke_variant(configs.ARCHS[name]), device="cpu")
+def test_vlm_and_audio_run_one_forward(name):
+    """One train forward of each family on the CPU, from the inputs that
+    ``input_specs`` describes, gives a finite loss."""
+    api = ModelAPI(configs.smoke_variant(configs.ARCHS[name]), device="cpu")
+    api.model.init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    batch = {}
+    for k, spec in api.input_specs(configs.ShapeConfig("t", "train", 24,
+                                                       2)).items():
+        a = rng.integers(1, api.cfg.vocab, spec.shape) \
+            if spec.dtype == torch.int32 else rng.normal(size=spec.shape)
+        batch[k] = torch.from_numpy(a).to(spec.dtype)
+    with torch.no_grad():
+        loss, m = api.train_loss(batch)
+    assert torch.isfinite(loss) and sorted(m) == ["loss", "total_loss"]
 
 
 @pytest.mark.parametrize("fn", ["rms_norm", "layer_norm", "apply_rope",

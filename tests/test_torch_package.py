@@ -10,7 +10,7 @@ from pathlib import Path
 
 import pytest
 
-pytest.importorskip("torch")
+torch = pytest.importorskip("torch")
 
 from repro import configs as jconfigs  # noqa: E402
 from repro_torch import configs  # noqa: E402
@@ -73,11 +73,16 @@ def test_moe_module_stands_alone():
     assert not set(imported_roots(path)) & set(FORBIDDEN)
 
 
-@pytest.mark.parametrize("name", ["internvl2-26b", "whisper-medium"])
-def test_vlm_and_audio_name_queue_1_item_7(name):
-    from repro_torch.models.lm import DecoderLM
+@pytest.mark.parametrize("name,model", [("internvl2-26b", "DecoderLM"),
+                                        ("whisper-medium", "EncDecLM")])
+def test_vlm_and_audio_build_on_the_cpu(name, model):
+    """ModelAPI builds the vlm family as a DecoderLM with ``vision_proj``
+    and the audio family as an EncDecLM, on the CPU when asked."""
+    from repro_torch.models.api import ModelAPI
     cfg = configs.smoke_variant(configs.ARCHS[name])
-    assert cfg.family in ("vlm", "audio")
-    with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP.md queue 1, item 7\)"):
-        DecoderLM(cfg, device="cpu")
+    api = ModelAPI(cfg, device="cpu")
+    assert type(api.model).__name__ == model
+    assert api.device == torch.device("cpu")
+    names = dict(api.model.named_parameters())
+    assert ("vision_proj" in names) == (cfg.family == "vlm")
+    assert ("dec_pos" in names) == (cfg.family == "audio")
