@@ -220,6 +220,22 @@
     2 layers.
 27. A JSON line per kernel, then ``{"ok": true, "device": ...}`` as the
     last line.
+28. Sharded training (run right after phase 17): smollm-135m at full
+    width on ``torch.cuda.device_count()`` spawned NCCL ranks, one card
+    each (world size 1 on a one-card machine), 3 AdamW steps of phase 14's
+    B 8 x S 1024 batches with bf16 compute on float32 masters, from the
+    same seeded weights: unsharded; on a ("data", "model") mesh under
+    DEFAULT_RULES and FSDP_RULES, each held to the unsharded step (loss,
+    grad norm, relative L2 per leaf within 1e-6); on a ("pod", "data",
+    "model") mesh with ``grad_compression``, step 0's loss held likewise
+    and every step's int8 codes, scales and residuals bit for bit to
+    ``compress_grads_allreduce`` run on the CPU on the grads and residual
+    the step captured.  The DEFAULT run's state is saved (rank 0 writes)
+    and restored with ``shardings=`` onto the mesh and without them onto
+    the CPU, bit for bit.  Each run's step times and peak memory, the
+    median step on the mesh against unsharded, the world size and the
+    card's name and power limit.  The ranks have a deadline; a hang or a
+    failed rank kills them all and fails the phase.
 
 Every check that fails exits non-zero before the last line is printed.
 Without a CUDA card, or run from a directory without the repository's
@@ -236,6 +252,7 @@ import itertools
 import json
 import os
 import pstats
+import queue
 import re
 import shutil
 import statistics
@@ -2758,6 +2775,308 @@ def phase_checkpoint(root: str, state) -> None:
 
 
 # --------------------------------------------------------------------------
+# sharded training (phase 28)
+# --------------------------------------------------------------------------
+
+# steps of each run; the sharded steps against the unsharded one: the
+# same float32 sums split over the ranks' shards, so 1e-6 relative (at
+# world size 1 every shard is the whole tensor and they agree exactly)
+SHARD_STEPS, SHARD_TOL, SHARD_DEADLINE_S = 3, 1e-6, 300.0
+
+
+def _bits(a) -> bytes:
+    return np.ascontiguousarray(a).view(np.uint8).tobytes()
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        return sk.getsockname()[1]
+
+
+def _shard_rank(rank, world, port, q, cfg, device, batches, root):
+    """One rank of phase 28, in a spawned process: joins the NCCL group
+    (gloo on the CPU), runs ``shard_runs`` and puts its result (or its
+    traceback) on ``q``."""
+    import traceback
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                      RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank))
+    try:
+        from repro_torch.launch.mesh import init_distributed
+        init_distributed(device, timeout_s=120.0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        q.put((rank, True, shard_runs(cfg, device, batches, root)))
+    except BaseException:
+        tb = traceback.format_exc()
+        print(f"sharded rank {rank}:\n{tb}", file=sys.stderr, flush=True)
+        q.put((rank, False, tb))
+        q.close()
+        q.join_thread()        # the result reaches the parent before the
+        os._exit(1)            # exit; peers that wait are killed there
+    torch.distributed.destroy_process_group()
+
+
+def shard_runs(cfg, device, batches, root) -> dict:
+    """Phase 28's work on one rank: ``cfg`` trained SHARD_STEPS steps
+    from the same seeded weights unsharded, on a ("data", "model") mesh
+    under DEFAULT_RULES and FSDP_RULES, and on a ("pod", "data", "model")
+    mesh with ``grad_compression`` (each step's int8 codes, scales and
+    residuals held bit for bit to ``compress_grads_allreduce`` run on the
+    CPU on the grads and residual the step captured); then the DEFAULT
+    run's state saved and restored onto the mesh (``shardings=``) and
+    onto the CPU.  Returns what rank 0 compares and measures."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.launch.mesh import make_mesh, make_mesh_for
+    from repro_torch.models.convert import to_host
+    from repro_torch.runtime.compression import compress_grads_allreduce
+    from repro_torch.sharding import partition
+    from repro_torch.train.trainstep import shard_state, state_shardings
+    dev = torch.device(device, torch.cuda.current_device()) \
+        if device == "cuda" else torch.device(device)
+    world = torch.distributed.get_world_size()
+    rank = torch.distributed.get_rank()
+    dsync = sync if device == "cuda" else (lambda: None)
+    kw = dict(peak_lr=TRAIN_LR, warmup=1, total_steps=10)
+    mesh2 = make_mesh_for(world, device=device)
+    mp = mesh2.mesh.shape[1]
+    pods = 2 if world % (2 * mp) == 0 else 1
+    mesh3 = make_mesh((pods, world // pods // mp, mp),
+                      ("pod", "data", "model"), device)
+    out = {"world": world, "mesh2": tuple(mesh2.mesh.shape),
+           "mesh3": tuple(mesh3.mesh.shape), "runs": {}}
+
+    def train(name, mesh=None, rules=None, compress=False):
+        api = ModelAPI(cfg, device=dev)
+        state = init_state(api, torch.Generator(device=dev).manual_seed(0),
+                           grad_compression=compress)
+        if mesh is not None:
+            state = shard_state(api, state, mesh, rules,
+                                grad_compression=compress)
+        step = make_train_step(api, mesh=mesh, rules=rules,
+                               grad_compression=compress, **kw)
+        r = {"losses": [], "norms": [], "times": [], "codes": 0,
+             "code_faults": []}
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        for b in batches[:SHARD_STEPS]:
+            cap = {} if compress else None
+            dsync()
+            t0 = time.perf_counter()
+            state, m = step(state, to_device(b, dev), cap)
+            r["losses"].append(float(m["loss"]))
+            dsync()
+            r["times"].append(time.perf_counter() - t0)
+            r["norms"].append(float(m["grad_norm"]))
+            if compress:
+                # the CPU's plain run on the step's own grads and residual
+                for path in cap["grads"]:
+                    g = torch.from_numpy(to_host(cap["grads"][path]))
+                    res = torch.from_numpy(to_host(cap["residual"][path]))
+                    codes = {}
+                    _, new_res = compress_grads_allreduce(
+                        {path: g}, {path: res}, None, n_pods=2,
+                        codes=codes)
+                    q_card, s_card = cap["codes"][path]
+                    same = (_bits(to_host(q_card))
+                            == _bits(codes[path][0].numpy())
+                            and _bits(to_host(s_card))
+                            == _bits(codes[path][1].numpy()))
+                    if pods == 1:     # one pod: no cross-pod sum either
+                        same = same and _bits(to_host(
+                            state["residual"][path])) == _bits(
+                            new_res[path].numpy())
+                    r["codes"] += 1
+                    if not same:
+                        r["code_faults"].append(path)
+                del cap
+        r["peak_gib"] = (torch.cuda.max_memory_allocated() / 2**30
+                         if device == "cuda" else 0.0)
+        r["dtensors"] = sum(isinstance(p, DTensor)
+                            for p in api.model.parameters())
+        r["params"] = sum(1 for _ in api.model.parameters())
+        host = {k: v for k, v in flatten_paths(
+            train_state_to_jax(state)).items()
+            if not k.startswith("residual/")}
+        out["runs"][name] = r
+        return api, state, host
+
+    _, _, plain = train("unsharded")
+    worst = {}
+    for name, mesh, rules, comp in (
+            ("data,model DEFAULT_RULES", mesh2, partition.DEFAULT_RULES,
+             False),
+            ("data,model FSDP_RULES", mesh2, partition.FSDP_RULES, False),
+            ("pod,data,model DEFAULT_RULES compressed", mesh3,
+             partition.DEFAULT_RULES, True)):
+        api, state, host = train(name, mesh, rules, comp)
+        if rank == 0:
+            errs = {k: rel_l2(torch.from_numpy(np.asarray(host[k],
+                                                          np.float64)),
+                              torch.from_numpy(np.asarray(plain[k],
+                                                          np.float64)))
+                    for k in plain if np.asarray(plain[k]).dtype.kind == "f"}
+            k = max(errs, key=errs.get)
+            worst[name] = (k, errs[k])
+        if rules is partition.DEFAULT_RULES and not comp:
+            saved_api, saved_state, saved_host = api, state, host
+        else:
+            del api, state
+        del host
+    out["worst"] = worst
+
+    # checkpoints: save the sharded state (rank 0 writes), restore it onto
+    # the mesh with shardings= and onto the CPU
+    store = CheckpointStore(os.path.join(root, "sharded-ckpt"))
+    t0 = time.perf_counter()
+    store.save(SHARD_STEPS, saved_state)
+    t_save = time.perf_counter() - t0
+    like_api = ModelAPI(cfg, device=dev)
+    like = init_state(like_api)
+    sh = state_shardings(like_api, like, mesh2, partition.DEFAULT_RULES)
+    t0 = time.perf_counter()
+    on_mesh, _ = store.restore(like=like, shardings=sh)
+    dsync()
+    t_mesh = time.perf_counter() - t0
+    got_mesh = flatten_paths(train_state_to_jax(on_mesh))
+    placed = all(isinstance(p, DTensor)
+                 for p in like_api.model.parameters())
+    del on_mesh, like, like_api
+    cpu_api = ModelAPI(cfg, device="cpu")
+    t0 = time.perf_counter()
+    on_cpu, _ = store.restore(like=init_state(cpu_api))
+    t_cpu = time.perf_counter() - t0
+    got_cpu = flatten_paths(train_state_to_jax(on_cpu))
+    on_cpu_dev = {p.device.type for p in cpu_api.model.parameters()}
+    store.close()
+    out["ckpt"] = {
+        "tensors": len(saved_host), "save_s": t_save, "mesh_s": t_mesh,
+        "cpu_s": t_cpu, "placed": placed, "cpu_devices": sorted(on_cpu_dev),
+        "mesh_same": sorted(got_mesh) == sorted(saved_host) and all(
+            _bits(got_mesh[k]) == _bits(saved_host[k]) for k in saved_host),
+        "cpu_same": sorted(got_cpu) == sorted(saved_host) and all(
+            _bits(got_cpu[k]) == _bits(saved_host[k]) for k in saved_host)}
+    del saved_api, saved_state
+    return out
+
+
+def phase_sharded(batches, cfg=None):
+    """Phase 28: sharded training of smollm-135m at full width on
+    ``torch.cuda.device_count()`` NCCL ranks, one card each (one on a
+    one-card machine), spawned with a deadline: on a hang or a failed rank
+    every rank is killed and the phase fails."""
+    import multiprocessing
+    cfg = cfg or get_arch("smollm-135m")
+    world = torch.cuda.device_count() if CUDA.type == "cuda" else 1
+    root = tempfile.mkdtemp(prefix="zerrow-sharded-")
+    ctx = multiprocessing.get_context("spawn")
+    q = ctx.Queue()
+    port = _free_port()
+    b = [{k: np.array(x[k]) for k in ("tokens", "labels")}
+         for x in batches[:SHARD_STEPS]]
+    procs = [ctx.Process(target=_shard_rank, args=(
+        r, world, port, q, cfg, CUDA.type, b, root)) for r in range(world)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    results, failure = {}, None
+    try:
+        end = t0 + SHARD_DEADLINE_S
+        while len(results) < world and failure is None:
+            left = end - time.perf_counter()
+            if left <= 0:
+                failure = f"the ranks outlived the {SHARD_DEADLINE_S} s " \
+                    "deadline"
+                break
+            try:
+                rank, ok, val = q.get(timeout=min(left, 1.0))
+            except queue.Empty:
+                dead = [i for i, p in enumerate(procs)
+                        if p.exitcode not in (None, 0) and i not in results]
+                if dead:
+                    failure = f"ranks {dead} died without a result"
+                continue
+            if ok:
+                results[rank] = val
+            else:
+                failure = f"rank {rank} failed:\n{val}"
+        for p in procs:
+            p.join(max(1.0, end - time.perf_counter()))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join(5)
+        shutil.rmtree(root, ignore_errors=True)
+    check(failure is None, f"sharded: {failure}")
+    out = results[0]
+    print(f"sharded: {cfg.name}, {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.dtype} compute on float32 masters, "
+          f"{cfg.optimizer}, B {TRAIN_B} x S {TRAIN_S}, {SHARD_STEPS} "
+          f"steps; world size {out['world']} (one NCCL rank a card); "
+          f"meshes (data, model) {out['mesh2']} and (pod, data, model) "
+          f"{out['mesh3']}; {time.perf_counter() - t0:.1f} s with the "
+          f"ranks' start")
+    plain = out["runs"]["unsharded"]
+    for name, r in out["runs"].items():
+        med = statistics.median(r["times"][1:])
+        print(f"sharded, {name}: losses {r['losses']!r}; grad norms "
+              f"{r['norms']!r}; step times "
+              f"{[round(t * 1e3, 2) for t in r['times']]} ms"
+              f" (median of steps 1-{SHARD_STEPS - 1} {med * 1e3:.2f} ms); "
+              f"max memory allocated {r['peak_gib']:.3f} GiB; "
+              f"{r['dtensors']} of {r['params']} parameters are DTensors"
+              + (f"; worst leaf against the unsharded step "
+                 f"{out['worst'][name][0]} {out['worst'][name][1]!r} "
+                 f"relative L2" if name in out["worst"] else "")
+              + (f"; int8 codes, scales and residuals of {r['codes']} "
+                 "leaf-steps held to the CPU's plain run"
+                 if r["codes"] else ""))
+        check(all(np.isfinite(r["losses"])) and all(np.isfinite(r["norms"])),
+              f"sharded, {name}: a loss or grad norm is not finite")
+        if name == "unsharded":
+            check(r["dtensors"] == 0, "sharded: the unsharded run holds "
+                  "DTensors")
+            continue
+        check(r["dtensors"] == r["params"],
+              f"sharded, {name}: {r['params'] - r['dtensors']} parameters "
+              "are not DTensors")
+        check(abs(r["losses"][0] - plain["losses"][0])
+              <= SHARD_TOL * abs(plain["losses"][0]),
+              f"sharded, {name}: step 0's loss {r['losses'][0]!r} against "
+              f"{plain['losses'][0]!r}")
+        if r["codes"]:
+            check(not r["code_faults"], f"sharded, {name}: codes differ "
+                  f"from the CPU's on {r['code_faults'][:5]}")
+            continue
+        check(all(abs(a - b) <= SHARD_TOL * abs(b) for a, b in zip(
+            r["losses"] + r["norms"], plain["losses"] + plain["norms"])),
+            f"sharded, {name}: losses or grad norms beyond {SHARD_TOL}")
+        check(out["worst"][name][1] <= SHARD_TOL,
+              f"sharded, {name}: {out['worst'][name]} beyond {SHARD_TOL}")
+    ck = out["ckpt"]
+    print(f"sharded, checkpoint: {ck['tensors']} tensors saved from the "
+          f"mesh in {ck['save_s']:.2f} s (rank 0 writes); restored with "
+          f"shardings= onto the mesh in {ck['mesh_s']:.2f} s (DTensors: "
+          f"{ck['placed']}, bit for bit: {ck['mesh_same']}) and onto the "
+          f"CPU in {ck['cpu_s']:.2f} s (devices {ck['cpu_devices']}, bit "
+          f"for bit: {ck['cpu_same']})")
+    check(ck["placed"] and ck["mesh_same"] and ck["cpu_same"]
+          and ck["cpu_devices"] == ["cpu"], "sharded: checkpoint round trip")
+    dt = statistics.median(out["runs"]["data,model DEFAULT_RULES"]
+                           ["times"][1:])
+    dp = statistics.median(plain["times"][1:])
+    print(f"sharded: median step {dt * 1e3:.2f} ms on the mesh against "
+          f"{dp * 1e3:.2f} ms unsharded ({(dt / dp - 1) * 100:+.1f} %: "
+          f"DTensor's cost at world size {out['world']}); device: "
+          f"{smi_line() if CUDA.type == 'cuda' else 'cpu'}")
+    return out
+
+
+# --------------------------------------------------------------------------
 # training rwkv6-3b, recurrentgemma-9b and qwen3-moe-30b-a3b; serving the
 # MoE
 # --------------------------------------------------------------------------
@@ -3258,8 +3577,10 @@ def main() -> int:
                                        train_batches)
         timed("phase 16", phase_train_vs_cpu, train_batches)
         timed("phase 17", phase_checkpoint, root, train_state)
-        del train_api, train_state, train_batches
+        del train_api, train_state
         torch.cuda.empty_cache()
+        timed("phase 28", phase_sharded, train_batches)
+        del train_batches
         for n, name in zip((18, 19, 21, 25, 26), BIG_TRAIN):
             train_paths[f"train {name}"] = timed(f"phase {n}",
                                                  phase_train_big, name,

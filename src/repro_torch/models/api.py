@@ -66,6 +66,27 @@ class ModelAPI:
             d["tokens"] = Spec((B, 1), i32) if cfg.is_encdec else text
         return d
 
+    def input_axes(self, shape: ShapeConfig) -> Dict[str, Tuple]:
+        """Logical axes of every input of ``input_specs``."""
+        ax: Dict[str, Tuple] = {}
+        for k in self.input_specs(shape):
+            if k in ("frames", "patches"):
+                ax[k] = ("batch", "seq", None) if k == "frames" \
+                    else ("batch", None, None)
+            else:
+                ax[k] = ("batch", "seq") if shape.kind != "decode" \
+                    else ("batch", None)
+        return ax
+
+    def cache_axes(self):
+        """Logical axes of the JAX package's decode caches: an enc-dec's
+        is (self caches, the cross (k, v) stacked over the layers)."""
+        base = self.model.cache_axes()
+        if self.cfg.is_encdec:
+            cross = ((None, "batch", "kv_seq", "kv_heads", None),) * 2
+            return (base, cross)
+        return base
+
     def train_loss(self, batch):
         """(loss, metrics) of a train batch {tokens, labels[, loss_mask][,
         patches | frames]}."""

@@ -24,9 +24,20 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels import ops
+from ..sharding.partition import constrain, replicated_like
 from .layers import apply_rope, dense_init_
 
 NEG_INF = -1e30
+# the attention core's layout under a mesh: sharded over the batch alone
+BATCH_ONLY = ("batch", "seq", None, None)
+
+
+def attn_axes():
+    """Logical axes of the attention weights (wq, wk, wv, wo)."""
+    return {"wq": ("fsdp", "heads", None),
+            "wk": ("fsdp", "kv_heads", None),
+            "wv": ("fsdp", "kv_heads", None),
+            "wo": ("heads", "fsdp")}
 
 
 def _online_softmax(qg, k, v, q_pos, *, causal: bool, window: int,
@@ -39,9 +50,10 @@ def _online_softmax(qg, k, v, q_pos, *, causal: bool, window: int,
     B, Sq, KV, G, hd = qg.shape
     T = k.shape[1]
     chunk = min(chunk, T)
-    m = torch.full((B, Sq, KV, G), NEG_INF, device=qg.device)
-    l = torch.zeros((B, Sq, KV, G), device=qg.device)
-    acc = torch.zeros((B, Sq, KV, G, hd), device=qg.device)
+    f32 = dict(dtype=torch.float32)
+    m = torch.full_like(qg[..., 0], NEG_INF, **f32)
+    l = torch.zeros_like(qg[..., 0], **f32)
+    acc = torch.zeros_like(qg, **f32)
     for i0 in range(0, T, chunk):
         kc, vc = k[:, i0:i0 + chunk], v[:, i0:i0 + chunk]
         # products of the inputs' dtype, accumulated in float32
@@ -53,6 +65,7 @@ def _online_softmax(qg, k, v, q_pos, *, causal: bool, window: int,
             mask &= kv_pos[None, :] <= q_pos[:, None]
         if window:
             mask &= kv_pos[None, :] > q_pos[:, None] - window
+        mask = replicated_like(mask, s)
         s = torch.where(mask[None, :, None, None, :], s, NEG_INF)
         m_new = torch.maximum(m, s.amax(dim=-1))
         p = torch.exp(s - m_new[..., None])
@@ -71,7 +84,13 @@ def chunked_attention(q, k, v, *, causal: bool, window: int = 0,
     grouping.  ``q_offset``: absolute position of q[:, 0].  When autograd
     records, each block of ``q_chunk`` queries is recomputed in the
     backward pass (``torch.utils.checkpoint``), so the (S x T) scores are
-    never saved."""
+    never saved.
+
+    Under a mesh q, k, v, the output and their grads are sharded over the
+    batch alone (the heads gathered): the einsums fold the batch and
+    KV-head dims into one, which DTensor refuses when both are sharded
+    (torch 2.11) or plans slowly (2.13)."""
+    q, k, v = (constrain(t, BATCH_ONLY) for t in (q, k, v))
     B, S, H, hd = q.shape
     KV = k.shape[2]
     G = H // KV
@@ -92,7 +111,8 @@ def chunked_attention(q, k, v, *, causal: bool, window: int = 0,
         else:
             outs.append(_online_softmax(qg[:, s0:s0 + qc], k, v, q_pos,
                                         **kw))
-    return torch.cat(outs, dim=1).reshape(B, S, H, hd).to(q.dtype)
+    out = torch.cat(outs, dim=1).reshape(B, S, H, hd).to(q.dtype)
+    return constrain(out, BATCH_ONLY)     # and its grad
 
 
 def decode_attention(q, k_cache, v_cache, cache_len):
@@ -171,10 +191,11 @@ def attn_apply(p, x, *, cfg, mode: str, cache: Optional[Dict] = None,
     k = (x @ p.wk.reshape(d, KV * hd).to(x.dtype)).view(B, S, KV, hd)
     v = (x @ p.wv.reshape(d, KV * hd).to(x.dtype)).view(B, S, KV, hd)
     if pos is None:
-        pos = torch.arange(S, device=x.device)[None, :]
+        pos = replicated_like(torch.arange(S, device=x.device)[None, :], x)
     if cfg.rope_theta > 0:
         q = apply_rope(q, pos, cfg.rope_theta)
         k = apply_rope(k, pos, cfg.rope_theta)
+    q = constrain(q, ("batch", "seq", "heads", None))
 
     if mode == "train" or (mode == "prefill" and cache is None):
         out = _attend(q, k, v, cfg, causal, window, mode)

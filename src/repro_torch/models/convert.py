@@ -32,6 +32,7 @@ import torch
 from torch import nn
 
 from ..configs.base import ArchConfig
+from ..sharding.partition import distribute, unshard
 from .lm import block_kinds, n_groups
 
 _NORMS = ("ln1", "ln2", "lnx", "enc_norm", "final_norm")
@@ -182,10 +183,12 @@ def flatten_paths(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
 
 
 def to_host(tree):
-    """Every tensor of a nested dict as a numpy array on the host."""
+    """Every tensor of a nested dict as a numpy array on the host; a
+    DTensor is gathered whole first (a collective: every rank of its mesh
+    calls this)."""
     if isinstance(tree, Mapping):
         return {key: to_host(v) for key, v in tree.items()}
-    return tree.detach().to("cpu", copy=True).numpy()
+    return unshard(tree.detach()).to("cpu", copy=True).numpy()
 
 
 def params_to_jax(model: nn.Module) -> Dict[str, Any]:
@@ -202,8 +205,11 @@ def train_state_to_jax(state: Mapping[str, Any]) -> Dict[str, Any]:
     by group, the optimizer state nested by leaf path, int32 counters."""
     opt = {key: nest(v) if isinstance(v, Mapping) else v
            for key, v in to_host(state["opt"]).items()}
-    return {"params": params_to_jax(state["params"]), "opt": opt,
-            "step": to_host(state["step"])}
+    out = {"params": params_to_jax(state["params"]), "opt": opt,
+           "step": to_host(state["step"])}
+    if "residual" in state:
+        out["residual"] = nest(to_host(state["residual"]))
+    return out
 
 
 def train_state_from_jax(tree: Mapping[str, Any],
@@ -235,4 +241,66 @@ def train_state_from_jax(tree: Mapping[str, Any],
             raise ValueError(f"opt/{key}: leaves {sorted(paths ^ set(per_leaf))}"
                              " missing or extra")
         opt[key] = per_leaf
-    return {"params": model, "opt": opt, "step": t(tree["step"])}
+    out = {"params": model, "opt": opt, "step": t(tree["step"])}
+    if "residual" in tree:
+        res = {path: t(x) for path, x in flatten_paths(
+            tree["residual"]).items()}
+        if set(res) != paths:
+            raise ValueError("residual: leaves "
+                             f"{sorted(paths ^ set(res))} missing or extra")
+        out["residual"] = res
+    return out
+
+
+# --------------------------------------------------------------------------
+# placing a train state on a mesh
+# --------------------------------------------------------------------------
+
+def set_param(model: nn.Module, name: str, t: torch.Tensor) -> None:
+    """Replace the parameter ``name`` of ``model`` by one holding ``t``."""
+    mod_name, _, attr = name.rpartition(".")
+    mod = model.get_submodule(mod_name) if mod_name else model
+    setattr(mod, attr, nn.Parameter(t, requires_grad=True))
+
+
+def place_train_state(state: Mapping[str, Any],
+                      shardings: Mapping[str, Any]) -> Dict[str, Any]:
+    """A port train state (the same full tensors on every rank) placed
+    by ``shardings``: a tree of ``partition.NamedSharding``s keyed as the
+    JAX train state (``trainstep.state_axes``), computed on its stacked
+    shapes.  Each parameter of the model becomes a DTensor parameter
+    placed by its JAX leaf's spec without the leading layer entry (always
+    None: layers are never sharded); the optimizer state and the
+    residual are placed leaf by leaf; 0-d leaves (step, count) stay
+    plain.  Returns the state, with the same model."""
+    model = state["params"]
+    names = {p: n for n, p in model.named_parameters()}
+    p_sh = flatten_paths(shardings["params"])
+    for leaf in jax_leaves(model):
+        sh = p_sh[leaf.path]
+        if leaf.stacked:
+            assert not sh.spec or sh.spec[0] is None, (leaf.path, sh.spec)
+            sh = type(sh)(sh.mesh, sh.spec[1:])
+        for p in leaf.params:
+            set_param(model, names[p], distribute(p, sh))
+    out = {"params": model, "step": state["step"]}
+    for key in ("opt", "residual"):
+        if key not in state:
+            continue
+        sh = flatten_paths(shardings[key])
+        flat = {path: t if t.dim() == 0 else distribute(t, sh[path])
+                for path, t in flatten_paths(state[key]).items()}
+        out[key] = _unflatten_like(state[key], flat)
+    return out
+
+
+def _unflatten_like(tree: Mapping[str, Any], flat: Mapping[str, Any],
+                    prefix: str = ""):
+    """``tree``'s nesting (keys may hold "/") with ``flat``'s values, as
+    ``flatten_paths`` keys them."""
+    out = {}
+    for k, v in tree.items():
+        path = f"{prefix}{k}"
+        out[k] = _unflatten_like(v, flat, path + "/") \
+            if isinstance(v, Mapping) else flat[path]
+    return out

@@ -29,9 +29,10 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
 from ..configs.base import ArchConfig
-from .attention import Attention
-from .layers import MLP, RMSNorm, normal_, rms_norm, softmax_xent, \
-    trunc_normal_
+from ..sharding.partition import constrain, replicated_like
+from .attention import Attention, attn_axes
+from .layers import MLP, RMSNorm, mlp_axes, normal_, rms_norm, \
+    softmax_xent, stacked_axes, trunc_normal_
 
 N_DEC_POS = 4096          # learned decoder positions, taken modulo this
 
@@ -134,6 +135,26 @@ class EncDecLM(nn.Module):
         normal_(self.dec_pos, 0.01, generator)
         return self
 
+    def param_axes(self) -> Dict:
+        """Logical axes of the JAX pytree of this model's parameters
+        (``enc_blocks`` and ``dec_blocks`` stacked over their layers)."""
+        a, m = attn_axes(), mlp_axes(self.cfg.mlp)
+        return {
+            "enc_blocks": stacked_axes({"ln1": (None,), "attn": a,
+                                        "ln2": (None,), "mlp": m}),
+            "dec_blocks": stacked_axes({"ln1": (None,), "self": a,
+                                        "lnx": (None,), "cross": a,
+                                        "ln2": (None,), "mlp": m}),
+            "embed": ("vocab", "fsdp"), "dec_pos": (None, "fsdp"),
+            "enc_norm": (None,), "final_norm": (None,)}
+
+    def cache_axes(self) -> Dict:
+        """Logical axes of the JAX package's self-attention caches,
+        stacked over the decoder layers."""
+        return {"k": (None, "batch", "kv_seq", "kv_heads", None),
+                "v": (None, "batch", "kv_seq", "kv_heads", None),
+                "len": (None,)}
+
     def _remat(self, mode: str) -> bool:
         return self.cfg.remat and mode == "train" and torch.is_grad_enabled()
 
@@ -145,8 +166,9 @@ class EncDecLM(nn.Module):
         cfg = self.cfg
         x = frames.to(self.cdtype)
         S = x.shape[1]
-        x = x + torch.from_numpy(sinusoid_pos(S, cfg.d_model)).to(
-            x.device, self.cdtype)[None]
+        x = x + replicated_like(torch.from_numpy(
+            sinusoid_pos(S, cfg.d_model)).to(x.device, self.cdtype)[None], x)
+        x = constrain(x, ("batch", "seq", None))
         remat = self._remat(mode)
         for blk in self.enc_blocks:
             if remat:
@@ -173,10 +195,12 @@ class EncDecLM(nn.Module):
         S = tokens.shape[1]
         x = F.embedding(tokens, self.embed).to(self.cdtype)
         if positions is None:
-            positions = torch.arange(S, device=x.device)[None, :]
+            positions = replicated_like(
+                torch.arange(S, device=x.device)[None, :], x)
         # (1|B, S, d) learned positions broadcast over the batch
         x = x + F.embedding(positions.long() % N_DEC_POS,
                             self.dec_pos).to(self.cdtype)
+        x = constrain(x, ("batch", "seq", None))
         remat = self._remat(mode)
         for i, blk in enumerate(self.dec_blocks):
             ck, cv = cross[i]
@@ -188,7 +212,8 @@ class EncDecLM(nn.Module):
                            caches[i] if caches is not None else None,
                            positions, ck, cv)
         x = rms_norm(x, self.final_norm.weight, cfg.norm_eps)
-        return x @ self.embed.T.to(x.dtype), caches
+        logits = x @ self.embed.T.to(x.dtype)
+        return constrain(logits, ("batch", "seq", "vocab")), caches
 
     # -- public API -----------------------------------------------------------
     def loss_fn(self, batch):

@@ -12,12 +12,14 @@ card without a pass through host memory.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..sharding.partition import constrain, replicated_like
 
 
 def draw_(w: torch.Tensor, generator: torch.Generator, fill) -> torch.Tensor:
@@ -89,7 +91,8 @@ def apply_rope(x, positions, theta: float):
     """x: (..., S, H, hd); positions: (..., S).  Rotates the two halves of
     the head dim (not interleaved pairs), in float32."""
     hd = x.shape[-1]
-    freqs = torch.from_numpy(rope_freqs(hd, theta)).to(x.device)
+    freqs = replicated_like(
+        torch.from_numpy(rope_freqs(hd, theta)).to(x.device), x)
     ang = positions[..., :, None].float() * freqs          # (..., S, hd/2)
     cos = torch.cos(ang)[..., :, None, :]
     sin = torch.sin(ang)[..., :, None, :]
@@ -102,6 +105,21 @@ def apply_rope(x, positions, theta: float):
 # MLP variants
 # --------------------------------------------------------------------------
 
+def stacked_axes(tree: Dict) -> Dict:
+    """Every axes leaf of a nested dict with a leading "layers" axis: the
+    axes of a subtree the JAX package stacks over its layers."""
+    return {k: stacked_axes(v) if isinstance(v, dict) else ("layers",) + v
+            for k, v in tree.items()}
+
+
+def mlp_axes(kind: str) -> Dict[str, Tuple]:
+    """Logical axes of an MLP's weights."""
+    if kind == "swiglu":
+        return {"wi": ("fsdp", "ffn"), "wg": ("fsdp", "ffn"),
+                "wo": ("ffn", "fsdp")}
+    return {"wi": ("fsdp", "ffn"), "wo": ("ffn", "fsdp")}
+
+
 def mlp_apply(x, wi, wo, kind: str, wg: Optional[torch.Tensor] = None):
     h = x @ wi.to(x.dtype)
     if kind == "swiglu":
@@ -112,6 +130,7 @@ def mlp_apply(x, wi, wo, kind: str, wg: Optional[torch.Tensor] = None):
         h = F.gelu(h, approximate="tanh")        # default is the tanh form
     else:
         raise ValueError(kind)
+    h = constrain(h, ("batch", "seq", "ffn"))
     return h @ wo.to(x.dtype)
 
 
@@ -120,8 +139,13 @@ def mlp_apply(x, wi, wo, kind: str, wg: Optional[torch.Tensor] = None):
 # --------------------------------------------------------------------------
 
 def softmax_xent(logits, labels, z_loss: float = 1e-4):
-    """Cross entropy with optional z-loss; logits (..., V), labels (...)."""
-    logits = logits.float()
+    """Cross entropy with optional z-loss; logits (..., V), labels (...).
+
+    Under a mesh whose rules shard "vocab", the logits are gathered over
+    the vocab first: DTensor's masked gather of the label logits from a
+    vocab-sharded tensor fails (torch 2.13), and ``loss_parallel`` covers
+    ``F.cross_entropy`` alone, not the z-loss's logsumexp."""
+    logits = constrain(logits, ("batch", "act_seq", None)).float()
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
     loss = lse - ll

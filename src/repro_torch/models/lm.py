@@ -35,12 +35,13 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
 from ..configs.base import ArchConfig
-from .attention import Attention
-from .layers import (MLP, RMSNorm, dense_init_, rms_norm, softmax_xent,
-                     trunc_normal_)
-from .moe import AUX_KEYS, MoE
-from .rglru import RGLRU
-from .rwkv6 import RWKVBlock
+from ..sharding.partition import constrain, replicated_like
+from .attention import Attention, attn_axes
+from .layers import (MLP, RMSNorm, dense_init_, mlp_axes, rms_norm,
+                     softmax_xent, stacked_axes, trunc_normal_)
+from .moe import AUX_KEYS, MoE, moe_axes
+from .rglru import RGLRU, rglru_axes
+from .rwkv6 import RWKVBlock, rwkv_channel_axes, rwkv_time_axes
 
 
 def block_kinds(cfg: ArchConfig) -> Tuple[str, ...]:
@@ -63,6 +64,36 @@ def n_groups(cfg: ArchConfig) -> int:
         raise ValueError(f"{cfg.name}: n_layers {cfg.n_layers} vs pattern "
                          f"{k}")
     return cfg.n_layers // k
+
+
+def sub_block_axes(kind: str, cfg: ArchConfig) -> Dict:
+    """Logical axes of one sub-block's parameters, keyed as the JAX
+    pytree."""
+    if kind == "rwkv":
+        return {"ln1": (None,), "time": rwkv_time_axes(),
+                "ln2": (None,), "channel": rwkv_channel_axes()}
+    mix = attn_axes() if kind in ("attn", "moe") else rglru_axes()
+    ffn = moe_axes() if kind == "moe" else mlp_axes(cfg.mlp)
+    return {"ln1": (None,), "mix": mix, "ln2": (None,), "ffn": ffn}
+
+
+def sub_block_cache_axes(kind: str, cfg: ArchConfig) -> Dict:
+    """Logical axes of the JAX package's cache of one sub-block kind,
+    stacked over the groups (leading None)."""
+    if kind in ("attn", "moe"):
+        out = {"k": (None, "batch", "kv_seq", "kv_heads", None),
+               "v": (None, "batch", "kv_seq", "kv_heads", None),
+               "len": (None,)}
+        if cfg.kv_cache_dtype == "int8":
+            out["k_scale"] = (None, "batch", "kv_seq", "kv_heads")
+            out["v_scale"] = (None, "batch", "kv_seq", "kv_heads")
+        return out
+    if kind == "rec":
+        return {"h": (None, "batch", "lru"),
+                "conv": (None, "batch", None, "lru")}
+    return {"time": {"shift": (None, "batch", "tensor"),
+                     "state": (None, "batch", "tensor", None, None)},
+            "channel": {"shift": (None, "batch", "tensor")}}
 
 
 class Block(nn.Module):
@@ -92,13 +123,18 @@ class Block(nn.Module):
         if self.kind == "rec":
             o, cache = self.mix(self.ln1(x), cfg, mode, cache)
         else:
-            o, cache = self.mix(self.ln1(x), cfg=cfg, mode=mode, cache=cache,
+            # under seq-sharded layouts attention needs the whole
+            # sequence: gathered once here, not per query block
+            h = constrain(self.ln1(x), ("batch", "seq", None))
+            o, cache = self.mix(h, cfg=cfg, mode=mode, cache=cache,
                                 pos=pos, window=self.window)
         x = x + o
+        # the MLP is per token: it runs on the seq-sharded residual
+        h2 = constrain(self.ln2(x), ("batch", "act_seq", None))
         if self.kind == "moe":
-            o, aux = self.ffn(self.ln2(x), cfg)
+            o, aux = self.ffn(h2, cfg)
             return x + o, cache, aux
-        return x + self.ffn(self.ln2(x)), cache, None
+        return x + self.ffn(h2), cache, None
 
 
 class DecoderLM(nn.Module):
@@ -145,20 +181,45 @@ class DecoderLM(nn.Module):
             dense_init_(self.vision_proj, self.cfg.d_model, generator)
         return self
 
+    def param_axes(self) -> Dict:
+        """Logical axes of the JAX pytree of this model's parameters
+        (``blocks/b{i}`` stacked over the groups)."""
+        cfg = self.cfg
+        axes = {"embed": ("vocab", "fsdp"),
+                "blocks": {f"b{i}": stacked_axes(sub_block_axes(kind, cfg))
+                           for i, kind in enumerate(self.kinds)},
+                "final_norm": (None,)}
+        if not cfg.tie_embeddings:
+            axes["lm_head"] = ("fsdp", "vocab")
+        if cfg.vision_tokens:
+            axes["vision_proj"] = ("fsdp", "tensor")
+        return axes
+
+    def cache_axes(self) -> Dict:
+        """Logical axes of the JAX package's stacked caches."""
+        return {f"b{i}": sub_block_cache_axes(kind, self.cfg)
+                for i, kind in enumerate(self.kinds)}
+
     # -- embedding / head -------------------------------------------------
     def embed_inputs(self, tokens, patches=None):
         """Token embeddings in the compute dtype; with ``patches`` (B, V, d)
         on a vlm model, ``patches @ vision_proj`` before them."""
-        x = F.embedding(tokens, self.embed).to(self.cdtype)
+        # under a mesh the ids are replicated first (a few bytes a token):
+        # DTensor's masked lookup in a vocab-sharded table builds its
+        # mask from the ids' local shard, and fails when it must also
+        # gather them (torch 2.13)
+        ids = constrain(tokens, (None,) * tokens.dim())
+        x = F.embedding(ids, self.embed).to(self.cdtype)
         if self.vision_proj is not None and patches is not None:
             pv = patches.to(self.cdtype) @ self.vision_proj.to(self.cdtype)
             x = torch.cat([pv, x], dim=1)
-        return x
+        return constrain(x, ("batch", "seq", None))
 
     def head(self, x):
         x = rms_norm(x, self.final_norm.weight, self.cfg.norm_eps)
         w = self.embed.T if self.lm_head is None else self.lm_head
-        return x @ w.to(x.dtype)
+        # act_seq keeps the logits seq-sharded under SP/FSDP layouts
+        return constrain(x @ w.to(x.dtype), ("batch", "act_seq", "vocab"))
 
     # -- layers ------------------------------------------------------------
     def backbone(self, x, mode: str, caches: Optional[List[Dict]] = None,
@@ -187,6 +248,11 @@ class DecoderLM(nn.Module):
             else:
                 out = run(blk, x, caches[i] if caches is not None else None)
             x = out[0]
+            if (i + 1) % len(self.kinds) == 0:
+                # the residual carried between groups (the one a
+                # rematerialized group saves); seq-sharded under
+                # ACT_SP_RULES
+                x = constrain(x, ("batch", "act_seq", None))
             for k, v in zip(AUX_KEYS, out[1:]):
                 aux[k] = aux[k] + v
         return x, aux, caches
@@ -205,7 +271,8 @@ class DecoderLM(nn.Module):
             raise ValueError(f"{cfg.name}: a train batch needs 'patches' "
                              f"(B, {cfg.vision_tokens}, {cfg.d_model})")
         x = self.embed_inputs(batch["tokens"], batch.get("patches"))
-        pos = torch.arange(x.shape[1], device=x.device)[None, :]
+        pos = replicated_like(
+            torch.arange(x.shape[1], device=x.device)[None, :], x)
         x, aux, _ = self.backbone_aux(x, "train", None, pos)
         if cfg.vision_tokens:
             x = x[:, cfg.vision_tokens:]

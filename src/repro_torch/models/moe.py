@@ -20,13 +20,15 @@ Aux metrics: the Switch-style load-balancing loss, the router z-loss and
 the share of pairs dropped.
 
 The JAX package takes ``_dispatch_groups`` groups of tokens, one per data
-shard of its mesh, and one without a mesh; sharding waits for ROADMAP.md
-queue 1 item 8, so this module always dispatches the T tokens of a call
-as one group.  (Without a mesh the JAX loop that halves the group count
-until each group holds at least k tokens ends at 0 groups, and fails,
-when T < k; one group needs no such loop.)  Capacity depends on the
-call's T: a decode step of B tokens has C = int(1.25 * k * B / E) or 1,
-so it drops pairs that a prefill of the same tokens keeps.
+shard of its mesh, and one without a mesh; the MoE under a mesh (its
+expert-parallel path) waits for ROADMAP.md queue 1 item 8c, so this
+module always dispatches the T tokens of a call as one group, and its
+``constrain`` sites replicate that group.  (Without a mesh the JAX loop
+that halves the group count until each group holds at least k tokens
+ends at 0 groups, and fails, when T < k; one group needs no such loop.)
+Capacity depends on the call's T: a decode step of B tokens has C =
+int(1.25 * k * B / E) or 1, so it drops pairs that a prefill of the
+same tokens keeps.
 """
 
 from __future__ import annotations
@@ -37,9 +39,26 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..sharding.partition import constrain
 from .layers import dense_init_
 
 AUX_KEYS = ("moe_lb_loss", "moe_z_loss", "moe_dropped")
+
+
+def moe_axes() -> Dict[str, Tuple]:
+    """Logical axes of the MoE weights."""
+    return {"router": ("fsdp", None),
+            "wi": ("expert", "fsdp", None),
+            "wg": ("expert", "fsdp", None),
+            "wo": ("expert", None, "fsdp")}
+
+
+def _replicated(t):
+    """The JAX module's constraint of a (groups, ...) dispatch tensor to
+    ("batch", None, ...), for the one group this module dispatches: a
+    "batch" axis over one group always drops, so the tensor is
+    replicated."""
+    return constrain(t, (None,) * t.dim())
 
 
 def route(p, xt, cfg):
@@ -99,10 +118,12 @@ def moe_apply(p, x, cfg) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     B, S, d = x.shape
     E, K = cfg.n_experts, cfg.top_k
     T = B * S
-    xt = x.reshape(T, d)
+    xt = _replicated(x.reshape(T, d))
     logits, probs, gate_w, gate_e = route(p, xt, cfg)
+    logits, probs = _replicated(logits), _replicated(probs)
     C = int(cfg.capacity_factor * K * T / E) or 1
     slot, st, sw, keep, order = dispatch(gate_e, gate_w, E, C)
+    slot = _replicated(slot)
     out = experts(p, xt, slot, st, sw, keep, order, E, C)
     me = probs.mean(dim=0)
     ce = torch.zeros(E, device=x.device).index_add_(

@@ -22,13 +22,14 @@ are updated in place.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..kernels import ops
+from ..sharding.partition import constrain
 from .layers import dense_init_, normal_, uniform_
 
 C_FACTOR = 8.0
@@ -96,11 +97,20 @@ def conv1d_apply(conv_w, x, state: Optional[torch.Tensor] = None):
     return out, xp[:, xp.shape[1] - (W - 1):]
 
 
+def rglru_axes() -> Dict[str, Tuple]:
+    """Logical axes of the RG-LRU block's weights."""
+    return {"wx": ("fsdp", "lru"), "wy": ("fsdp", "lru"),
+            "conv": (None, "lru"),
+            "gate_a": ("lru", None, None), "gate_x": ("lru", None, None),
+            "lam": ("lru",), "wo": ("lru", "fsdp")}
+
+
 def rglru_block_apply(p, x, cfg, mode: str, cache: Optional[Dict] = None):
     """The recurrent block.  cache: {"h": (B, w) float32, "conv": (B,
     conv_width - 1, w)}, updated in place.  Returns (out, cache)."""
     rec = x @ p.wx.to(x.dtype)
     gate = F.gelu(x @ p.wy.to(x.dtype), approximate="tanh")
+    rec = constrain(rec, ("batch", "seq", "lru"))
     rec, new_conv = conv1d_apply(p.conv, rec,
                                  cache["conv"] if cache else None)
     if mode == "decode":

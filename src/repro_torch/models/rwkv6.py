@@ -19,13 +19,14 @@ step.  Caches are updated in place.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..kernels import ops
+from ..sharding.partition import constrain
 from .layers import RMSNorm, dense_init_, normal_, uniform_
 
 LORA_R = 64
@@ -143,6 +144,23 @@ def rwkv_time_apply(p, x, cfg, mode: str, cache: Optional[Dict] = None):
     return out, cache
 
 
+def rwkv_time_axes() -> Dict[str, Tuple]:
+    """Logical axes of the time-mix weights."""
+    return {"mu": (None, "fsdp"),
+            "wr": ("fsdp", "tensor"), "wk": ("fsdp", "tensor"),
+            "wv": ("fsdp", "tensor"), "wg": ("fsdp", "tensor"),
+            "wo": ("tensor", "fsdp"),
+            "w0": ("tensor",), "w_lora_a": ("fsdp", None),
+            "w_lora_b": (None, "tensor"), "u": ("tensor", None),
+            "ln_w": ("tensor",)}
+
+
+def rwkv_channel_axes() -> Dict[str, Tuple]:
+    """Logical axes of the channel-mix weights."""
+    return {"mu": (None, "fsdp"), "wk": ("fsdp", "ffn"),
+            "wv": ("ffn", "fsdp"), "wr": ("fsdp", "tensor")}
+
+
 def rwkv_channel_apply(p, x, cfg, mode: str, cache: Optional[Dict] = None):
     """Channel-mix sub-block.  cache: {"shift": (B, d)}, updated in place.
     Returns (out, cache)."""
@@ -151,6 +169,7 @@ def rwkv_channel_apply(p, x, cfg, mode: str, cache: Optional[Dict] = None):
     xk = x + mu[0] * (prev - x)
     xr = x + mu[1] * (prev - x)
     k = F.relu(xk @ p.wk.to(x.dtype)).square()
+    k = constrain(k, ("batch", "seq", "ffn"))
     out = torch.sigmoid(xr @ p.wr.to(x.dtype)) * (k @ p.wv.to(x.dtype))
     if cache is not None:
         cache["shift"].copy_(new_shift)

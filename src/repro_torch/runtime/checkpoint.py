@@ -23,8 +23,16 @@ once and writes it as the JAX train state pytree
 so either package restores the other's snapshots.  Any other pytree of
 tensors or arrays is written leaf for leaf.  ``restore(like=...)`` puts
 each leaf on the device of ``like``'s leaf, and loads a port train state
-into ``like``'s model.  Resharding onto a mesh (``shardings=``) waits for
-ROADMAP.md queue 1, item 8.
+into ``like``'s model.
+
+A sharded state (DTensors on a mesh) is saved whole: every rank gathers
+each DTensor (``full_tensor()``), rank 0 alone writes (the blobs are
+content-addressed, so ranks that all wrote would race on the same
+files) and flushes, and every rank waits at a barrier until the
+snapshot is on disk.  ``restore(shardings=...)`` is the elastic re-mesh:
+each leaf is placed by ``distribute_tensor`` on whatever mesh the
+(possibly differently sized) new job gives, so a snapshot written by 4
+ranks restores onto 2, onto 1, or into the JAX package.
 """
 
 from __future__ import annotations
@@ -39,9 +47,12 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from ..models import convert
+from ..sharding.partition import distribute
 
 
 def _leaf_paths(tree, prefix=""):
@@ -73,9 +84,25 @@ class CheckpointStore:
     def save(self, step: int, state) -> Dict[str, Any]:
         """Snapshot a port train state, or any pytree of tensors and
         arrays.  Returns the manifest (also written to disk).  With
-        async_io the heavy writes happen on the writer thread."""
+        async_io the heavy writes happen on the writer thread.
+
+        A state that holds DTensors is a collective: every rank of their
+        mesh calls ``save``; rank 0 writes, flushes and returns the
+        manifest, the others return None once it is on disk."""
+        sharded = _has_dtensor(state)
+        host = _to_host(state)
+        if sharded and dist.get_rank() != 0:
+            dist.barrier()
+            return None
+        manifest = self._save_host(step, host)
+        if sharded:
+            self.flush()
+            dist.barrier()
+        return manifest
+
+    def _save_host(self, step: int, host) -> Dict[str, Any]:
         manifest = {"step": step, "time": time.time(), "tensors": {}}
-        for path, leaf in _leaf_paths(_to_host(state)):
+        for path, leaf in _leaf_paths(host):
             arr = np.asarray(leaf)
             h = hashlib.blake2b(arr.tobytes(), digest_size=16).hexdigest()
             blob = os.path.join(self.root, "blobs", h + ".npy")
@@ -151,11 +178,14 @@ class CheckpointStore:
         ``like``'s tensor, or as a numpy array where ``like`` holds one.
         A port train state as ``like`` has its model's parameters
         overwritten with the snapshot's, in place, and the returned state
-        holds that model.  Without ``like``: the flat {path: array} dict."""
-        if shardings is not None:
-            raise NotImplementedError(
-                "restore(shardings=...): resharding onto a mesh comes with "
-                "ROADMAP.md queue 1, item 8")
+        holds that model.  Without ``like``: the flat {path: array} dict.
+
+        ``shardings``: a tree of ``partition.NamedSharding``s matching
+        ``like`` (for a train state, keyed as the JAX train state:
+        ``trainstep.state_shardings``), on the new job's mesh.  Each leaf
+        is then a DTensor placed by its sharding (0-d leaves stay plain,
+        on the mesh's device); a train state's model gets DTensor
+        parameters, whatever it held before."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError("no checkpoints in " + self.root)
@@ -172,9 +202,41 @@ class CheckpointStore:
             return flat, manifest
         if _is_train_state(like):
             tree = convert.nest({path[1:]: a for path, a in flat.items()})
-            return convert.train_state_from_jax(tree, like["params"]), \
-                manifest
-        return _unflatten(flat, like), manifest
+            model = like["params"]
+            if shardings is not None:
+                _unplace(model, _mesh_device(shardings["step"].mesh))
+            state = convert.train_state_from_jax(tree, model)
+            if shardings is not None:
+                state = convert.place_train_state(state, shardings)
+            return state, manifest
+        return _unflatten(flat, like, shardings=shardings), manifest
+
+
+def _mesh_device(mesh) -> torch.device:
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
+def _unplace(model: nn.Module, device: torch.device) -> None:
+    """Give every parameter of ``model`` a plain tensor of its global
+    shape on ``device`` (values to be overwritten), so a snapshot loads
+    into a model that holds DTensors or lives elsewhere."""
+    for name, p in list(model.named_parameters()):
+        if isinstance(p, DTensor) or p.device != device:
+            convert.set_param(model, name, torch.empty(
+                p.shape, dtype=p.dtype, device=device))
+
+
+def _has_dtensor(tree) -> bool:
+    if _is_train_state(tree):
+        return any(isinstance(p, DTensor)
+                   for p in tree["params"].parameters())
+    if isinstance(tree, dict):
+        return any(_has_dtensor(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return any(_has_dtensor(v) for v in tree)
+    return isinstance(tree, DTensor)
 
 
 def _is_train_state(tree) -> bool:
@@ -192,22 +254,29 @@ def _to_host(state):
     if isinstance(state, (list, tuple)):
         return type(state)(_to_host(v) for v in state)
     if isinstance(state, torch.Tensor):
-        return state.detach().to("cpu", copy=True).numpy()
+        return convert.to_host(state)
     return state
 
 
-def _unflatten(flat: Dict[str, np.ndarray], like, prefix: str = ""):
+def _unflatten(flat: Dict[str, np.ndarray], like, prefix: str = "",
+               shardings=None):
     """``like``'s structure with the snapshot's leaves; each tensor leaf
-    on the device of ``like``'s."""
+    on the device of ``like``'s, or placed by its sharding."""
     if isinstance(like, dict):
-        return {k: _unflatten(flat, like[k], f"{prefix}/{k}")
+        return {k: _unflatten(flat, like[k], f"{prefix}/{k}",
+                              None if shardings is None else shardings[k])
                 for k in sorted(like)}
     if isinstance(like, (list, tuple)):
-        return type(like)(_unflatten(flat, v, f"{prefix}/{i}")
-                          for i, v in enumerate(like))
+        return type(like)(
+            _unflatten(flat, v, f"{prefix}/{i}",
+                       None if shardings is None else shardings[i])
+            for i, v in enumerate(like))
     if prefix not in flat:
         raise KeyError(f"{prefix}: not in the snapshot")
     arr = flat[prefix]
+    if shardings is not None:
+        t = torch.from_numpy(arr).to(_mesh_device(shardings.mesh))
+        return t if t.dim() == 0 else distribute(t, shardings)
     if isinstance(like, torch.Tensor):
         return torch.from_numpy(arr).to(like.device)
     return arr

@@ -18,8 +18,9 @@ failure hooks so the policies are testable:
   * elastic re-mesh                — a new mesh (e.g. 512 -> 448 chips)
     restores the same checkpoint with new shardings (restore(..,
     shardings=...)): data-parallel size changes, model state is intact.
-    In the port that restore waits for sharding (ROADMAP.md queue 1,
-    item 8); the policy that asks for it is here.
+    In the port ``CheckpointStore.restore(shardings=...)`` places each
+    leaf on the new job's ``DeviceMesh``; the policy that asks for it is
+    here.
 
 The PyTorch port's copy of the JAX package's ``runtime/fault.py``, over
 the port's ``core.faultplane`` and ``runtime.checkpoint``.

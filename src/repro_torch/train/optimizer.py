@@ -31,6 +31,13 @@ import torch
 Leaves = Dict[str, torch.Tensor]
 
 
+def _axes_like(param_axes, fn):
+    """``fn`` of every axes leaf (a tuple of names) of a nested dict."""
+    if isinstance(param_axes, dict):
+        return {k: _axes_like(v, fn) for k, v in param_axes.items()}
+    return fn(param_axes)
+
+
 def _count(params: Leaves) -> torch.Tensor:
     dev = next(iter(params.values())).device
     return torch.zeros((), dtype=torch.int32, device=dev)
@@ -48,6 +55,11 @@ class AdamW:
         return {"mu": {k: z(p) for k, p in params.items()},
                 "nu": {k: z(p) for k, p in params.items()},
                 "count": _count(params)}
+
+    def state_axes(self, param_axes) -> Dict:
+        """Logical axes of the state, in the JAX layout (the moments
+        sharded like the params)."""
+        return {"mu": param_axes, "nu": param_axes, "count": (None,)}
 
     def update(self, grads: Leaves, state: Dict, params: Leaves,
                lr: torch.Tensor) -> Tuple[Leaves, Dict]:
@@ -102,6 +114,17 @@ class Adafactor:
             return {"v": torch.zeros(p.shape, **f32)}
         return {"v": {k: st(p) for k, p in params.items()},
                 "count": _count(params)}
+
+    def state_axes(self, param_axes) -> Dict:
+        """Logical axes of the state, in the JAX layout: a factored
+        leaf's row and column moments drop its last and its second-last
+        axis."""
+        def ax(a):
+            a = tuple(a)
+            if len(a) >= 2:
+                return {"vr": a[:-1], "vc": a[:-2] + a[-1:]}
+            return {"v": a}
+        return {"v": _axes_like(param_axes, ax), "count": (None,)}
 
     def update(self, grads: Leaves, state: Dict, params: Leaves,
                lr: torch.Tensor) -> Tuple[Leaves, Dict]:

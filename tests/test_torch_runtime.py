@@ -90,10 +90,42 @@ def test_checkpoint_latest_and_restore_like(store):
 
 
 def test_restore_onto_a_mesh_waits_for_sharding(store):
+    """Restore onto a mesh, which no longer waits for the sharding
+    slice: on a one-rank gloo mesh, ``shardings=`` places each leaf as a
+    DTensor with its spec's placements (over size-1 mesh dims, replicas)
+    and the snapshot's values (0-d leaves stay plain), and saving those
+    DTensors writes the same snapshot again."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro_torch.sharding.partition import NamedSharding
+    from torch_ranks import one_rank
     store.save(1, tree(1))
     store.flush()
-    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
-        store.restore(1, like=tree(1), shardings={})
+    with one_rank():
+        mesh = init_device_mesh("cpu", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        sh = {"params": {"w": NamedSharding(mesh, ("data", "model")),
+                         "frozen": NamedSharding(mesh, ())},
+              "opt": {"mu": NamedSharding(mesh, (None, "model")),
+                      "count": NamedSharding(mesh, ())}}
+        got, _ = store.restore(1, like=tree(1, as_tensor=True),
+                               shardings=sh)
+        w, mu = got["params"]["w"], got["opt"]["mu"]
+        assert isinstance(w, DTensor) and isinstance(mu, DTensor)
+        assert tuple(w.placements) == sh["params"]["w"].placements == \
+            (Replicate(), Replicate())
+        assert tuple(mu.placements) == sh["opt"]["mu"].placements
+        assert not isinstance(got["opt"]["count"], DTensor)
+        want = tree(1)
+        np.testing.assert_array_equal(w.full_tensor().numpy(),
+                                      want["params"]["w"])
+        assert int(got["opt"]["count"]) == 1
+        mani = store.save(2, got)
+        assert mani is not None
+    flat, _ = store.restore(2)
+    for path, arr in flatten_paths({"": want}).items():
+        np.testing.assert_array_equal(flat[path], arr)
 
 
 # -- tests/test_runtime.py:55-95, on the port ---------------------------------

@@ -255,7 +255,62 @@ def test_train_attention_grads_match_jax(window):
 
 
 def test_sharding_options_raise():
-    _, _, api, _ = build()
-    for kw in (dict(grad_compression=True), dict(mesh=object())):
-        with pytest.raises(NotImplementedError, match="queue 1, item 8"):
-            trainstep.make_train_step(api, **kw)
+    """What the sharding options refuse now that they run: a step on a
+    mesh raises when the state was not placed there (``shard_state``), a
+    mesh raises when its size is not the world's, and under an active
+    mesh a plain tensor with a dimension cannot reach a ``constrain``
+    site (on a one-rank gloo mesh)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.launch import mesh as meshes
+    from repro_torch.sharding import partition
+    from torch_ranks import one_rank
+    _, _, api, state = build()
+    with pytest.raises(RuntimeError, match="init_distributed"):
+        meshes.make_mesh_for(1, device="cpu")
+    with one_rank():
+        mesh = init_device_mesh("cpu", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        step = trainstep.make_train_step(api, mesh=mesh)
+        b = tx(batches(0, 1, api.cfg.vocab)[0])
+        with pytest.raises(TypeError, match="shard_state"):
+            step(state, b)
+        with pytest.raises(ValueError, match="needs 4 ranks"):
+            meshes.make_mesh_for(4, model_parallel=2, device="cpu")
+        assert meshes.make_mesh_for(1, device="cpu").mesh_dim_names == \
+            ("data", "model")
+        with partition.use_mesh(mesh), \
+                pytest.raises(TypeError, match="fell out of DTensor"):
+            api.train_loss(b)
+
+
+def test_grad_compression_without_a_pod_axis_matches_jax():
+    """``grad_compression`` on a step with no "pod" axis (here, no mesh)
+    compresses nothing, as in the JAX step: the state carries a float32
+    zero residual per leaf, unchanged, and the trajectory is the plain
+    step's."""
+    japi, _, api, _ = build(5)
+    jstate = jtrainstep.init_state(japi, jax.random.key(5),
+                                   grad_compression=True)
+    fresh = trainstep.init_state(api, grad_compression=True)
+    assert sorted(fresh["residual"]) == [leaf.path for leaf in
+                                         jax_leaves(api.model)]
+    assert not any(t.any() for t in fresh["residual"].values())
+    state = train_state_from_jax(jax.tree.map(np.asarray, jstate),
+                                 api.model)
+    kw = dict(peak_lr=1e-3, warmup=2, total_steps=STEPS,
+              grad_compression=True)
+    jstep = jax.jit(jtrainstep.make_train_step(japi, **kw))
+    step = trainstep.make_train_step(api, **kw)
+    for b in batches(6, 3, api.cfg.vocab):
+        jstate, jm = jstep(jstate, jx(b))
+        state, m = step(state, tx(b))
+        assert rel(m["loss"].item(), jm["loss"]) <= TRAJ_TOL
+    got = flatten_paths(train_state_to_jax(state))
+    want = flatten_paths(jax.tree.map(np.asarray, jstate))
+    assert sorted(got) == sorted(want)
+    for path, a in want.items():
+        if path.startswith("residual/"):
+            assert not got[path].any(), path
+        else:
+            assert rel_l2(got[path], a) <= TRAJ_TOL, path
