@@ -51,8 +51,9 @@
    ``cuda`` with the launch counts set to 0 just before and read just
    after, and on the port's ``cpu`` device; every output buffer must
    agree bit for bit, and the group totals must equal a numpy recount.
-   A profiled cuda run gives the device's busy share and the time spent
-   at the kdispatch edge (by call: ``grouped_reduce`` is the group-by's).
+   The left join's cuda run is the profiled one (it runs once on cuda):
+   it gives the device's busy share and the time spent at the kdispatch
+   edge (by call: ``grouped_reduce`` is the group-by's).
 7. Recurrent kernels (WKV-6 and RG-LRU scans) and flash attention at hd
    256 with a 2048-token window: each against its plain PyTorch version on
    the same CUDA tensors over ragged lengths (the edges of the bf16 wkv6
@@ -115,7 +116,7 @@
     small star before it shows what a worker's first join costs (its CUDA
     context and the kernels' libraries).
 13. Zerrow prompts: smollm-135m at full width served over
-    ``ZerrowPromptSource`` (4 zarquet shards of 8 prompts, one DAG a
+    ``ZerrowPromptSource`` (4 zarquet shards of 4 prompts, one DAG a
     shard) in thread and in process mode, batch 8, max_seq 1024, 32 new
     tokens: every prompt must be its shard text byte-tokenized, every
     prefill must launch flash attention once per layer, tokens in
@@ -123,9 +124,9 @@
     --prompt-shards 4 --workers 2 --workers-mode process`` as a user
     runs it, for 2 rounds.
 14. The training input pipeline (run right after phase 13):
-    ``ZerrowDataPipeline`` over a corpus of 2 zarquet shards of 250,000
-    documents each (about 22 MB of text a shard) and the metadata of
-    500,000 documents (keep_frac 0.75), batch 8 x 1024 tokens, in thread
+    ``ZerrowDataPipeline`` over a corpus of 2 zarquet shards of 62,500
+    documents each (about 5.5 MB of text a shard) and the metadata of
+    125,000 documents (keep_frac 0.75), batch 8 x 1024 tokens, in thread
     mode (4 workers) on ``cuda`` and on ``cpu``, then through 2 Flight
     workers on ``cuda``.  Every batch of each run must equal the numpy
     recount (the kept documents' bytes in order), so the three runs are
@@ -222,7 +223,7 @@
     last line.
 28. Sharded training (run right after phase 17): smollm-135m at full
     width on ``torch.cuda.device_count()`` spawned NCCL ranks, one card
-    each (world size 1 on a one-card machine), 3 AdamW steps of phase 14's
+    each (world size 1 on a one-card machine), 2 AdamW steps of phase 14's
     B 8 x S 1024 batches with bf16 compute on float32 masters, from the
     same seeded weights: unsharded; on a ("data", "model") mesh under
     DEFAULT_RULES and FSDP_RULES, each held to the unsharded step (loss,
@@ -234,8 +235,19 @@
     and restored with ``shardings=`` onto the mesh and without them onto
     the CPU, bit for bit.  Each run's step times and peak memory, the
     median step on the mesh against unsharded, the world size and the
-    card's name and power limit.  The ranks have a deadline; a hang or a
-    failed rank kills them all and fails the phase.
+    card's name and power limit.  Then, in the same ranks, the five other
+    families at full width and cut depth (``SHARD_FAMILIES``:
+    qwen3-moe-30b-a3b at 2 layers, recurrentgemma-9b at one group,
+    rwkv6-3b at 2 layers, internvl2-26b at 1 layer with 256 patches,
+    whisper-medium at 2 + 2 layers with 1500 frames), 2 AdamW steps of B
+    1-2 x S 256 seeded tokens each unsharded and on the ("data",
+    "model") mesh under DEFAULT_RULES, bf16 compute on float32 masters:
+    each mesh run held to its unsharded run (loss, grad norm, the MoE's
+    ``moe_dropped``, relative L2 per leaf within 1e-6), every parameter a
+    DTensor on the mesh; each run's step times and peak memory on a line
+    of its own beside the card's name and power limit.  The ranks have a
+    deadline; a hang or a failed rank kills them all and fails the
+    phase.
 
 Every check that fails exits non-zero before the last line is printed.
 Without a CUDA card, or run from a directory without the repository's
@@ -752,9 +764,10 @@ def profile_run(fn, label: str, top: int = 6) -> dict:
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
-        print(f"profile of {label}: the profiler recorded no CUDA event: "
-              "device busy share not measured")
-        return {}
+        print(f"profile of {label}: wall {wall_us / 1e3:.2f} ms; the "
+              "profiler recorded no CUDA event: device busy share not "
+              "measured")
+        return dict(wall_ms=wall_us / 1e3)
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     busy, end = 0.0, float("-inf")
     for s0, s1 in spans:                   # union of device intervals
@@ -1294,45 +1307,11 @@ def star_keeps(orders) -> dict:
             "filtered inner join": (amount >= 500_000) & (cust < N_CUST)}
 
 
-def phase_star(orders, customers):
-    """Both star queries at SF10 on cuda (counted) and on the port's cpu
-    device; bit-identical buffers, expected launches, a numpy recount,
-    and a profiled cuda run with the time spent at the kdispatch edge.
-    Returns the launches and each query's group-by output on cuda."""
-    keeps = star_keeps(orders)
-    launches = {k: 0 for k in PER_QUERY}
-    walls, group_bys = {}, {}
-    for name, query in (("left join", star_left),
-                        ("filtered inner join", star_filtered)):
-        keep = keeps[name]
-        sync()
-        ops.reset_launch_counts()
-        t0 = time.perf_counter()
-        j, g = query(orders, customers)
-        sync()
-        wall_cuda = time.perf_counter() - t0
-        counts = dict(ops.launch_counts)
-        with kdispatch.using_device("cpu"):
-            t0 = time.perf_counter()
-            j_cpu, g_cpu = query(orders, customers)
-            wall_cpu = time.perf_counter() - t0
-        same_buffers(j, j_cpu, f"{name}: join output")
-        same_buffers(g, g_cpu, f"{name}: group-by output")
-        want = dict(dict.fromkeys(ops.launch_counts, 0), **PER_QUERY)
-        print(f"star query, {name}: {j.num_rows} joined rows, "
-              f"{g.num_rows} groups; wall cuda {wall_cuda * 1e3:.1f} ms, "
-              f"cpu {wall_cpu * 1e3:.1f} ms; launches {counts}; cuda and "
-              "cpu outputs bit-identical")
-        check(counts == want, f"{name}: launches {counts} != {want}")
-        check(g.to_pydict() == recount(orders, keep),
-              f"{name}: group-by disagrees with the numpy recount")
-        for k in launches:
-            launches[k] += counts[k]
-        walls[name] = (wall_cuda, wall_cpu)
-        group_bys[name] = g
-        del j, j_cpu, g_cpu
-
-    spent = {}
+def profiled_star_left(orders, customers):
+    """The left-join star query on cuda once under the profiler, with the
+    host's own time by function (cProfile) and the time spent in each
+    kdispatch call; prints them and returns (join, group-by, wall s)."""
+    spent, out = {}, []
 
     def timed(key, fn):
         def inner(*a, **kw):
@@ -1347,12 +1326,12 @@ def phase_star(orders, customers):
             for k in ("hash_fixed", "combine_hashes", "filter_join_gather",
                       "grouped_reduce")}):
         host = cProfile.Profile()
-        prof = profile_run(lambda: host.runcall(star_left, orders,
-                                                customers),
-                           "the left-join star query on cuda", top=10)
+        prof = profile_run(lambda: out.extend(host.runcall(
+            star_left, orders, customers)),
+            "the left-join star query on cuda", top=10)
     edge = sum(spent.values()) * 1e3
     print(f"in that run, kdispatch calls (edge copies, validation, kernels) "
-          f"{edge:.1f} ms of {prof.get('wall_ms', float('nan')):.1f} ms wall"
+          f"{edge:.1f} ms of {prof['wall_ms']:.1f} ms wall"
           f": {({k: round(v * 1e3, 1) for k, v in spent.items()})}; the "
           "rest is host numpy in core.ops, by own time (cProfile):")
     stats = pstats.Stats(host)
@@ -1360,6 +1339,52 @@ def phase_star(orders, customers):
     for (path, line, fn), (_, _, own, cum, _) in top:
         print(f"  {own * 1e3:10.1f} ms own {cum * 1e3:10.1f} ms cumulative  "
               f"{os.path.basename(path)}:{line}:{fn}")
+    return out[0], out[1], prof["wall_ms"] / 1e3
+
+
+def phase_star(orders, customers):
+    """Both star queries at SF10 on cuda (counted) and on the port's cpu
+    device; bit-identical buffers, expected launches and a numpy recount.
+    The left join's cuda run is profiled, with the time spent at the
+    kdispatch edge (one run of it on cuda, not a counted one and a
+    profiled one).  Returns the launches and each query's group-by output
+    on cuda."""
+    keeps = star_keeps(orders)
+    launches = {k: 0 for k in PER_QUERY}
+    walls, group_bys = {}, {}
+    for name, query in (("left join", star_left),
+                        ("filtered inner join", star_filtered)):
+        keep = keeps[name]
+        sync()
+        ops.reset_launch_counts()
+        if query is star_left:
+            j, g, wall_cuda = profiled_star_left(orders, customers)
+        else:
+            t0 = time.perf_counter()
+            j, g = query(orders, customers)
+            sync()
+            wall_cuda = time.perf_counter() - t0
+        counts = dict(ops.launch_counts)
+        with kdispatch.using_device("cpu"):
+            t0 = time.perf_counter()
+            j_cpu, g_cpu = query(orders, customers)
+            wall_cpu = time.perf_counter() - t0
+        same_buffers(j, j_cpu, f"{name}: join output")
+        same_buffers(g, g_cpu, f"{name}: group-by output")
+        want = dict(dict.fromkeys(ops.launch_counts, 0), **PER_QUERY)
+        print(f"star query, {name}: {j.num_rows} joined rows, "
+              f"{g.num_rows} groups; wall cuda {wall_cuda * 1e3:.1f} ms"
+              f"{' (profiled)' if query is star_left else ''}, "
+              f"cpu {wall_cpu * 1e3:.1f} ms; launches {counts}; cuda and "
+              "cpu outputs bit-identical")
+        check(counts == want, f"{name}: launches {counts} != {want}")
+        check(g.to_pydict() == recount(orders, keep),
+              f"{name}: group-by disagrees with the numpy recount")
+        for k in launches:
+            launches[k] += counts[k]
+        walls[name] = (wall_cuda, wall_cpu)
+        group_bys[name] = g
+        del j, j_cpu, g_cpu
     return launches, group_bys
 
 
@@ -1540,9 +1565,10 @@ def phase_zerrow_prompts() -> dict:
     root = tempfile.mkdtemp(prefix="zerrow-prompts-")
     flash = {}
     try:
-        # 4 batches a mode: each served batch repeats phase 4's path, so
-        # more batches add time and no coverage
-        shards = make_prompt_shards(root, 4, 8)
+        # 2 batches a mode (4 until phase 28's family runs took their
+        # time): each served batch repeats phase 4's path, so more
+        # batches add time and no coverage
+        shards = make_prompt_shards(root, 4, 4)
         texts = [t for p in shards
                  for t in zarquet.read_table(p).to_pydict()["text"]]
         want = [(np.frombuffer(t.encode(), np.uint8).astype(np.int32)
@@ -2327,11 +2353,12 @@ def phase_serve_rgemma() -> dict:
 # training smollm-135m on the Zerrow pipeline's batches
 # --------------------------------------------------------------------------
 
-# the corpus: 2 shards of 250,000 documents (8-24 words each, about 22 MB
-# of text a shard) and the metadata of 500,000 documents, 0.75 kept (cut
+# the corpus: 2 shards of 62,500 documents (8-24 words each, about 5.5 MB
+# of text a shard) and the metadata of 125,000 documents, 0.75 kept (cut
 # from 4 shards, and smollm's 30 steps to 10, to make room for phases
-# 22-26 in the script's time)
-N_SHARDS, DOCS_PER_SHARD, KEEP_FRAC = 2, 250_000, 0.75
+# 22-26 in the script's time, and from 250,000 documents a shard, in two
+# cuts, for phase 28's family runs)
+N_SHARDS, DOCS_PER_SHARD, KEEP_FRAC = 2, 62_500, 0.75
 TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_WARMUP, TRAIN_LR = 8, 1024, 10, 3, 1e-3
 # card against CPU, float32 (TF32 off): step 0's grads per leaf by relative
 # L2 (the two devices sum the same products in other orders, which moves a
@@ -2536,8 +2563,8 @@ def recording_routes():
     (T, k), copied to the host) while the block runs."""
     log, real = [], moe_mod.route
 
-    def route(p, xt, cfg):
-        out = real(p, xt, cfg)
+    def route(router, xt, cfg):
+        out = real(router, xt, cfg)
         log.append(out[3].detach().to("cpu", copy=True))
         return out
     with mock.patch.object(moe_mod, "route", route):
@@ -2781,7 +2808,17 @@ def phase_checkpoint(root: str, state) -> None:
 # steps of each run; the sharded steps against the unsharded one: the
 # same float32 sums split over the ranks' shards, so 1e-6 relative (at
 # world size 1 every shard is the whole tensor and they agree exactly)
-SHARD_STEPS, SHARD_TOL, SHARD_DEADLINE_S = 3, 1e-6, 300.0
+SHARD_STEPS, SHARD_TOL, SHARD_DEADLINE_S = 2, 1e-6, 420.0
+# phase 28's family runs: (n_layers, B, S) at full width, each 2 steps
+# unsharded and on the ("data", "model") mesh under DEFAULT_RULES, with
+# seeded tokens (and 256 patches or 1500 frames) beside them; depths at
+# most those of phases 18-26 (an enc-dec: that many of each kind)
+SHARD_FAMILIES = {"qwen3-moe-30b-a3b": (2, 2, 256),
+                  "recurrentgemma-9b": (3, 1, 256),
+                  "rwkv6-3b": (2, 2, 256),
+                  "internvl2-26b": (1, 2, 256),
+                  "whisper-medium": (2, 2, 256)}
+SHARD_FAMILY_STEPS = 2
 
 
 def _bits(a) -> bytes:
@@ -2795,7 +2832,8 @@ def _free_port() -> int:
         return sk.getsockname()[1]
 
 
-def _shard_rank(rank, world, port, q, cfg, device, batches, root):
+def _shard_rank(rank, world, port, q, cfg, device, batches, root,
+                families):
     """One rank of phase 28, in a spawned process: joins the NCCL group
     (gloo on the CPU), runs ``shard_runs`` and puts its result (or its
     traceback) on ``q``."""
@@ -2808,7 +2846,8 @@ def _shard_rank(rank, world, port, q, cfg, device, batches, root):
         init_distributed(device, timeout_s=120.0)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        q.put((rank, True, shard_runs(cfg, device, batches, root)))
+        q.put((rank, True, shard_runs(cfg, device, batches, root,
+                                      families)))
     except BaseException:
         tb = traceback.format_exc()
         print(f"sharded rank {rank}:\n{tb}", file=sys.stderr, flush=True)
@@ -2819,7 +2858,7 @@ def _shard_rank(rank, world, port, q, cfg, device, batches, root):
     torch.distributed.destroy_process_group()
 
 
-def shard_runs(cfg, device, batches, root) -> dict:
+def shard_runs(cfg, device, batches, root, families) -> dict:
     """Phase 28's work on one rank: ``cfg`` trained SHARD_STEPS steps
     from the same seeded weights unsharded, on a ("data", "model") mesh
     under DEFAULT_RULES and FSDP_RULES, and on a ("pod", "data", "model")
@@ -2827,7 +2866,8 @@ def shard_runs(cfg, device, batches, root) -> dict:
     residuals held bit for bit to ``compress_grads_allreduce`` run on the
     CPU on the grads and residual the step captured); then the DEFAULT
     run's state saved and restored onto the mesh (``shardings=``) and
-    onto the CPU.  Returns what rank 0 compares and measures."""
+    onto the CPU; then ``family_runs`` for each of ``families``.  Returns
+    what rank 0 compares and measures."""
     from torch.distributed.tensor import DTensor
 
     from repro_torch.launch.mesh import make_mesh, make_mesh_for
@@ -2960,16 +3000,129 @@ def shard_runs(cfg, device, batches, root) -> dict:
         "cpu_same": sorted(got_cpu) == sorted(saved_host) and all(
             _bits(got_cpu[k]) == _bits(saved_host[k]) for k in saved_host)}
     del saved_api, saved_state
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    out["families"] = {name: family_runs(*spec, dev, mesh2, dsync)
+                       for name, spec in families.items()}
     return out
 
 
-def phase_sharded(batches, cfg=None):
+def state_leaves(state):
+    """(path, tensor on the device) of every leaf of a train state in the
+    JAX layout, params stacked by group, DTensors whole."""
+    from repro_torch.sharding.partition import unshard
+    for leaf in jax_leaves(state["params"]):
+        yield f"params/{leaf.path}", leaf.stack(
+            [unshard(p.detach()) for p in leaf.params])
+    for path, t in flatten_paths(state["opt"]).items():
+        yield f"opt/{path}", unshard(t)
+
+
+def rel_l2_chunked(a, b) -> float:
+    """Relative L2 of a against b, summed in float64 a chunk at a time (a
+    leaf of a billion elements needs no float64 copy)."""
+    a, b = a.reshape(-1), b.reshape(-1)
+    num = den = 0.0
+    step = 1 << 26
+    for i in range(0, b.numel(), step):
+        x, y = a[i:i + step].double(), b[i:i + step].double()
+        num += float((x - y).square().sum())
+        den += float(y.square().sum())
+    return (num / max(den, 1e-300)) ** 0.5
+
+
+def family_runs(cfg, B, S, dev, mesh, dsync) -> dict:
+    """One family of phase 28: ``cfg`` (a ``big_cfg``: full width, cut
+    depth), SHARD_FAMILY_STEPS AdamW steps of B x S seeded tokens
+    (with seeded patches or frames, ``input_specs``' names) from the same
+    seeded weights, unsharded and on ``mesh`` under DEFAULT_RULES.  The
+    unsharded final state waits on the device (recurrentgemma-9b's 32 GB
+    beside the mesh run's 45 GB peak); the mesh run's is held to it leaf
+    by leaf.  Returns both runs' metrics, step times and peak memory, and
+    the worst leaf."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.sharding import partition
+    from repro_torch.train.trainstep import shard_state
+    rng = np.random.default_rng(28)
+    data = []
+    for _ in range(SHARD_FAMILY_STEPS):
+        b = {k: torch.from_numpy(rng.integers(1, cfg.vocab, (B, S)).astype(
+            np.int32)) for k in ("tokens", "labels")}
+        if cfg.is_encdec or cfg.vision_tokens:
+            key = "frames" if cfg.is_encdec else "patches"
+            n = N_FRAMES if cfg.is_encdec else cfg.vision_tokens
+            b[key] = torch.from_numpy(rng.standard_normal(
+                (B, n, cfg.d_model)).astype(np.float32)).to(
+                getattr(torch, cfg.dtype))
+        data.append(b)
+    kw = dict(peak_lr=TRAIN_LR, warmup=1, total_steps=10)
+
+    def run(mesh=None, held=0):
+        api = ModelAPI(cfg, device=dev)
+        state = init_state(api, torch.Generator(device=dev).manual_seed(0))
+        if mesh is not None:
+            state = shard_state(api, state, mesh, partition.DEFAULT_RULES)
+        step = make_train_step(api, mesh=mesh, rules=partition.DEFAULT_RULES
+                               if mesh is not None else None, **kw)
+        r = {"losses": [], "norms": [], "dropped": [], "times": [],
+             "held_gib": 0.0}
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+            # the mesh run's peak is told net of the unsharded state kept
+            r["held_gib"] = held / 2**30
+        for b in data:
+            dsync()
+            t0 = time.perf_counter()
+            state, m = step(state, to_device(b, dev))
+            r["losses"].append(float(m["loss"]))
+            dsync()
+            r["times"].append(time.perf_counter() - t0)
+            r["norms"].append(float(m["grad_norm"]))
+            if "moe_dropped" in m:
+                r["dropped"].append(float(m["moe_dropped"]))
+        r["peak_gib"] = ((torch.cuda.max_memory_allocated() - held) / 2**30
+                         if dev.type == "cuda" else 0.0)
+        r["dtensors"] = sum(isinstance(p, DTensor)
+                            for p in api.model.parameters())
+        r["tensors"] = sum(1 for _ in api.model.parameters())
+        r["params"] = sum(p.numel() for p in api.model.parameters())
+        return api, state, r
+
+    t0 = time.perf_counter()
+    api, state, plain = run()
+    layers = layout(api.model)
+    # the unsharded final state stays on the device, without its grads
+    # and casts: 12 bytes a parameter beside the mesh run's 18
+    kept = dict(state_leaves(state))
+    del api, state
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    api, state, sharded = run(mesh, torch.cuda.memory_allocated()
+                              if dev.type == "cuda" else 0)
+    errs = {path: rel_l2_chunked(t, kept[path])
+            for path, t in state_leaves(state)}
+    worst = max(errs, key=errs.get)
+    del api, state, kept
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return {"layout": layers, "B": B, "S": S,
+            "extra": {k: tuple(v.shape) for k, v in data[0].items()
+                      if k in ("patches", "frames")},
+            "unsharded": plain, "mesh": sharded,
+            "worst": (worst, errs[worst], len(errs)),
+            "seconds": time.perf_counter() - t0}
+
+
+def phase_sharded(batches, cfg=None, families=None):
     """Phase 28: sharded training of smollm-135m at full width on
     ``torch.cuda.device_count()`` NCCL ranks, one card each (one on a
     one-card machine), spawned with a deadline: on a hang or a failed rank
     every rank is killed and the phase fails."""
     import multiprocessing
     cfg = cfg or get_arch("smollm-135m")
+    families = {name: (big_cfg(name, n), B, S) for name, (n, B, S) in (
+        SHARD_FAMILIES if families is None else families).items()}
     world = torch.cuda.device_count() if CUDA.type == "cuda" else 1
     root = tempfile.mkdtemp(prefix="zerrow-sharded-")
     ctx = multiprocessing.get_context("spawn")
@@ -2978,7 +3131,8 @@ def phase_sharded(batches, cfg=None):
     b = [{k: np.array(x[k]) for k in ("tokens", "labels")}
          for x in batches[:SHARD_STEPS]]
     procs = [ctx.Process(target=_shard_rank, args=(
-        r, world, port, q, cfg, CUDA.type, b, root)) for r in range(world)]
+        r, world, port, q, cfg, CUDA.type, b, root, families))
+        for r in range(world)]
     t0 = time.perf_counter()
     for p in procs:
         p.start()
@@ -3069,10 +3223,43 @@ def phase_sharded(batches, cfg=None):
     dt = statistics.median(out["runs"]["data,model DEFAULT_RULES"]
                            ["times"][1:])
     dp = statistics.median(plain["times"][1:])
+    device = smi_line() if CUDA.type == "cuda" else "cpu"
     print(f"sharded: median step {dt * 1e3:.2f} ms on the mesh against "
           f"{dp * 1e3:.2f} ms unsharded ({(dt / dp - 1) * 100:+.1f} %: "
-          f"DTensor's cost at world size {out['world']}); device: "
-          f"{smi_line() if CUDA.type == 'cuda' else 'cpu'}")
+          f"DTensor's cost at world size {out['world']}); device: {device}")
+    for name, f in out["families"].items():
+        for run in ("unsharded", "mesh"):
+            r = f[run]
+            print(f"sharded family {name} ({f['layout']}, {r['params']} "
+                  f"float32 parameters, B {f['B']} x S {f['S']}"
+                  + (f" beside {f['extra']}" if f["extra"] else "")
+                  + f"), {run}" + (f" {out['mesh2']} DEFAULT_RULES"
+                                   if run == "mesh" else "")
+                  + f": losses {r['losses']!r}; grad norms {r['norms']!r}"
+                  + (f"; moe_dropped {r['dropped']!r}" if r["dropped"]
+                     else "") + f"; step times "
+                  f"{[round(t * 1e3, 2) for t in r['times']]} ms; max "
+                  f"memory allocated {r['peak_gib']:.3f} GiB"
+                  + (f" beside the {r['held_gib']:.3f} GiB of the unsharded "
+                     "state kept" if r["held_gib"] else "")
+                  + f" [{device}]")
+            check(all(np.isfinite(r["losses"] + r["norms"] + r["dropped"])),
+                  f"sharded family {name}, {run}: a metric is not finite")
+        plain, r = f["unsharded"], f["mesh"]
+        path, err, n = f["worst"]
+        print(f"sharded family {name}: the mesh run against the unsharded "
+              f"one, worst of {n} leaves {path} {err!r} relative L2 "
+              f"({f['seconds']:.1f} s for both runs)")
+        check(plain["dtensors"] == 0 and r["dtensors"] == r["tensors"],
+              f"sharded family {name}: {r['tensors'] - r['dtensors']} "
+              "parameters off the mesh")
+        check(err <= SHARD_TOL, f"sharded family {name}: {path} {err!r} "
+              f"beyond {SHARD_TOL}")
+        check(all(abs(a - b) <= SHARD_TOL * abs(b) for a, b in zip(
+            r["losses"] + r["norms"] + r["dropped"],
+            plain["losses"] + plain["norms"] + plain["dropped"])),
+            f"sharded family {name}: losses, grad norms or moe_dropped "
+            f"beyond {SHARD_TOL}")
     return out
 
 

@@ -32,7 +32,7 @@ from ..configs.base import ArchConfig
 from ..sharding.partition import constrain, replicated_like
 from .attention import Attention, attn_axes
 from .layers import MLP, RMSNorm, mlp_axes, normal_, rms_norm, \
-    softmax_xent, stacked_axes, trunc_normal_
+    softmax_xent, stacked_axes, tied_table, trunc_normal_
 
 N_DEC_POS = 4096          # learned decoder positions, taken modulo this
 
@@ -193,13 +193,23 @@ class EncDecLM(nn.Module):
                  positions=None):
         cfg = self.cfg
         S = tokens.shape[1]
-        x = F.embedding(tokens, self.embed).to(self.cdtype)
+        # under a mesh the ids are replicated first, as
+        # ``DecoderLM.embed_inputs`` does
+        ids = constrain(tokens, (None,) * tokens.dim())
+        x = F.embedding(ids, tied_table(self.embed)).to(self.cdtype)
+        # the lookup's masked partial sum is resolved before the add: on
+        # torch 2.11 its mask buffer conflicts with the next microbatch's
+        x = constrain(x, ("batch", "seq", None))
         if positions is None:
             positions = replicated_like(
                 torch.arange(S, device=x.device)[None, :], x)
-        # (1|B, S, d) learned positions broadcast over the batch
-        x = x + F.embedding(positions.long() % N_DEC_POS,
-                            self.dec_pos).to(self.cdtype)
+        # (1|B, S, d) learned positions broadcast over the batch; under a
+        # mesh gathered over d before the add (DTensor's lookup in the
+        # d-sharded table leaves a masked partial sum that it cannot
+        # broadcast over the batch, torch 2.13)
+        pe = F.embedding(positions.long() % N_DEC_POS, self.dec_pos)
+        pe = constrain(pe, (None,) * pe.dim())
+        x = x + pe.to(self.cdtype)
         x = constrain(x, ("batch", "seq", None))
         remat = self._remat(mode)
         for i, blk in enumerate(self.dec_blocks):
@@ -212,7 +222,7 @@ class EncDecLM(nn.Module):
                            caches[i] if caches is not None else None,
                            positions, ck, cv)
         x = rms_norm(x, self.final_norm.weight, cfg.norm_eps)
-        logits = x @ self.embed.T.to(x.dtype)
+        logits = x @ tied_table(self.embed).T.to(x.dtype)
         return constrain(logits, ("batch", "seq", "vocab")), caches
 
     # -- public API -----------------------------------------------------------

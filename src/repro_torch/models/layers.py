@@ -131,7 +131,20 @@ def mlp_apply(x, wi, wo, kind: str, wg: Optional[torch.Tensor] = None):
     else:
         raise ValueError(kind)
     h = constrain(h, ("batch", "seq", "ffn"))
-    return h @ wo.to(x.dtype)
+    # the output keeps the whole sequence, as an attention output does
+    # (``lm.Block``, which gathers the input's)
+    return constrain(h @ wo.to(x.dtype), ("batch", "seq", None))
+
+
+def tied_table(embed):
+    """The embedding table (vocab, d), placed ("vocab", "fsdp"), for one of
+    its uses.  Under a mesh each use's grad is put back on the table's
+    own placements in the backward pass, so the lookup's grad and a tied
+    head's grad meet on the same placements when autograd adds them:
+    torch 2.11 cannot turn the lookup's d-sharded grad into the partial
+    sum the head's grad is ("redistribute from S(1) to P(sum) not
+    supported yet")."""
+    return constrain(embed, ("vocab", "fsdp"))
 
 
 # --------------------------------------------------------------------------

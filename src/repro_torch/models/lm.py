@@ -38,7 +38,7 @@ from ..configs.base import ArchConfig
 from ..sharding.partition import constrain, replicated_like
 from .attention import Attention, attn_axes
 from .layers import (MLP, RMSNorm, dense_init_, mlp_axes, rms_norm,
-                     softmax_xent, stacked_axes, trunc_normal_)
+                     softmax_xent, stacked_axes, tied_table, trunc_normal_)
 from .moe import AUX_KEYS, MoE, moe_axes
 from .rglru import RGLRU, rglru_axes
 from .rwkv6 import RWKVBlock, rwkv_channel_axes, rwkv_time_axes
@@ -128,9 +128,15 @@ class Block(nn.Module):
             h = constrain(self.ln1(x), ("batch", "seq", None))
             o, cache = self.mix(h, cfg=cfg, mode=mode, cache=cache,
                                 pos=pos, window=self.window)
-        x = x + o
-        # the MLP is per token: it runs on the seq-sharded residual
-        h2 = constrain(self.ln2(x), ("batch", "act_seq", None))
+        # the output, and so its grad, keeps the whole sequence: on torch
+        # 2.11 the backward of the output projection cannot flatten a
+        # grad sharded over both batch and sequence (ACT_SP_RULES)
+        x = x + constrain(o, ("batch", "seq", None))
+        # the MLP (or the MoE) takes the whole sequence, as attention
+        # does: under ACT_SP_RULES the seq-sharded residual is gathered
+        # here, because torch 2.11 cannot flatten an activation sharded
+        # over both batch and sequence for the MLP's products
+        h2 = constrain(self.ln2(x), ("batch", "seq", None))
         if self.kind == "moe":
             o, aux = self.ffn(h2, cfg)
             return x + o, cache, aux
@@ -209,7 +215,8 @@ class DecoderLM(nn.Module):
         # mask from the ids' local shard, and fails when it must also
         # gather them (torch 2.13)
         ids = constrain(tokens, (None,) * tokens.dim())
-        x = F.embedding(ids, self.embed).to(self.cdtype)
+        x = F.embedding(ids, tied_table(self.embed)).to(self.cdtype)
+        x = constrain(x, ("batch", "seq", None))
         if self.vision_proj is not None and patches is not None:
             pv = patches.to(self.cdtype) @ self.vision_proj.to(self.cdtype)
             x = torch.cat([pv, x], dim=1)
@@ -217,7 +224,11 @@ class DecoderLM(nn.Module):
 
     def head(self, x):
         x = rms_norm(x, self.final_norm.weight, self.cfg.norm_eps)
-        w = self.embed.T if self.lm_head is None else self.lm_head
+        # under ACT_SP_RULES the sequence is gathered first, as the MLP's
+        # input is (``Block``)
+        x = constrain(x, ("batch", "seq", None))
+        w = tied_table(self.embed).T if self.lm_head is None \
+            else self.lm_head
         # act_seq keeps the logits seq-sharded under SP/FSDP layouts
         return constrain(x @ w.to(x.dtype), ("batch", "act_seq", "vocab"))
 

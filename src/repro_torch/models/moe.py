@@ -1,5 +1,5 @@
 """Mixture-of-Experts block (Qwen3-MoE style: 128 experts, top-8).  Port
-of ``src/repro/models/moe.py``'s one-device path.
+of ``src/repro/models/moe.py``.
 
 Sort-based capacity dispatch:
 
@@ -19,13 +19,23 @@ Sort-based capacity dispatch:
 Aux metrics: the Switch-style load-balancing loss, the router z-loss and
 the share of pairs dropped.
 
-The JAX package takes ``_dispatch_groups`` groups of tokens, one per data
-shard of its mesh, and one without a mesh; the MoE under a mesh (its
-expert-parallel path) waits for ROADMAP.md queue 1 item 8c, so this
-module always dispatches the T tokens of a call as one group, and its
-``constrain`` sites replicate that group.  (Without a mesh the JAX loop
-that halves the group count until each group holds at least k tokens
-ends at 0 groups, and fails, when T < k; one group needs no such loop.)
+Without a mesh the T tokens of a call are one group.  Under a mesh they
+are ``_dispatch_groups`` groups of T / G consecutive tokens, one per data
+shard, as in the JAX package: G is the product of the mesh sizes of the
+rules' "batch" axes, halved while it does not divide T or a group would
+hold fewer than k tokens.  The loop stops at one group (the JAX one
+halves to 0 and fails when T < k; so does its one-device path, which the
+port does not follow).  Each group routes, sorts and takes its capacity
+C = int(capacity_factor * k * T / (G * E)) or 1 on its own, on the rank
+that holds it (``per_shard``): with more than one group a mesh keeps other
+pairs than one group would whenever a group overflows.  Where "model"
+has more than one rank, E divides by it and G is the pod x data rank
+count, the expert-parallel path runs (the JAX ``shard_map`` path): each
+rank runs only its E / model experts' rows of its group, adds their
+weighted outputs into a (T / G, d) partial, and one all-reduce over
+"model" sums the partials, in float32 (the JAX one sums them in the
+compute dtype).  Every other mesh gathers the expert weights and runs
+all E experts on each rank's groups (the JAX ``_token_path_auto``).
 Capacity depends on the call's T: a decode step of B tokens has C =
 int(1.25 * k * B / E) or 1, so it drops pairs that a prefill of the
 same tokens keeps.
@@ -39,7 +49,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..sharding.partition import constrain
+from ..sharding.partition import (constrain, current_mesh, current_rules,
+                                  mesh_sizes, per_shard, rule_size)
 from .layers import dense_init_
 
 AUX_KEYS = ("moe_lb_loss", "moe_z_loss", "moe_dropped")
@@ -53,22 +64,55 @@ def moe_axes() -> Dict[str, Tuple]:
             "wo": ("expert", None, "fsdp")}
 
 
-def _replicated(t):
-    """The JAX module's constraint of a (groups, ...) dispatch tensor to
-    ("batch", None, ...), for the one group this module dispatches: a
-    "batch" axis over one group always drops, so the tensor is
-    replicated."""
-    return constrain(t, (None,) * t.dim())
-
-
-def route(p, xt, cfg):
-    """Router of x (T, d): (logits (T, E) float32, probs, gate_w (T, k),
-    gate_e (T, k)); gate_w renormalised over the k."""
-    logits = (xt @ p.router.to(xt.dtype)).float()
+def route(router, xt, cfg):
+    """Router of x (T, d) with the (d, E) router weight: (logits (T, E)
+    float32, probs, gate_w (T, k), gate_e (T, k)); gate_w renormalised
+    over the k."""
+    logits = (xt @ router.to(xt.dtype)).float()
     probs = torch.softmax(logits, dim=-1)
-    gate_w, gate_e = torch.topk(probs, cfg.top_k, dim=-1)
+    return (logits, probs) + top_k(probs, cfg.top_k)
+
+
+def top_k(probs, k: int):
+    """(gate_w, gate_e) of router probabilities (..., E): the k largest
+    and their experts, gate_w renormalised over the k."""
+    gate_w, gate_e = torch.topk(probs, k, dim=-1)
     gate_w = gate_w / torch.clamp(gate_w.sum(-1, keepdim=True), min=1e-9)
-    return logits, probs, gate_w, gate_e
+    return gate_w, gate_e
+
+
+def _dispatch_groups(cfg) -> int:
+    """Dispatch groups before the halving: the product of the active
+    mesh's sizes of the rules' "batch" axes, 1 without a mesh (the JAX
+    function; the mesh may be a ``MeshShape``)."""
+    mesh = current_mesh()
+    return 1 if mesh is None else rule_size("batch", mesh, current_rules())
+
+
+def group_plan(T: int, cfg) -> Tuple[int, int, int]:
+    """(G, T / G, C) of a call of T tokens: the group count halved while
+    it does not divide T or a group would hold fewer than k tokens (down
+    to one group), and each group's capacity."""
+    G = _dispatch_groups(cfg)
+    while G > 1 and (T % G or T // G < cfg.top_k):
+        G //= 2
+    Tl = T // G
+    return G, Tl, int(cfg.capacity_factor * cfg.top_k * Tl
+                      / cfg.n_experts) or 1
+
+
+def expert_ranks(E: int, G: int) -> int:
+    """The "model" rank count of the expert-parallel path under the active
+    mesh, 0 where it does not apply: "model" has more than one rank, E
+    divides by it and G is the pod x data rank count (the JAX
+    ``_token_path``'s conditions)."""
+    mesh = current_mesh()
+    if mesh is None:
+        return 0
+    sizes = mesh_sizes(mesh)
+    mp = sizes.get("model", 1)
+    gm = sizes.get("pod", 1) * sizes.get("data", 1)
+    return mp if mp > 1 and E % mp == 0 and G == gm else 0
 
 
 def dispatch(gate_e, gate_w, E: int, C: int):
@@ -90,19 +134,24 @@ def dispatch(gate_e, gate_w, E: int, C: int):
     return slot, st, sw, keep, order
 
 
-def experts(p, xt, slot, st, sw, keep, order, E: int, C: int):
+def experts(wi, wg, wo, xt, slot, st, sw, keep, order, C: int, e0: int = 0):
     """Dispatch -> each expert's SwiGLU -> weighted combine, in xt's
-    dtype.  xt (T, d); returns (T, d)."""
+    dtype, for the experts e0 .. e0 + E' - 1 whose weights wi, wg (E', d,
+    f) and wo (E', f, d) are given (all E by default): a pair of another
+    expert adds nothing.  xt (T, d); returns (T, d)."""
     T, d = xt.shape
-    TK = slot.shape[0]
+    E_loc, TK = wi.shape[0], slot.shape[0]
     dt = xt.dtype
-    buckets = xt.new_zeros((E * C + 1, d)).index_put((slot,), xt[st])
-    xe = buckets[:E * C].view(E, C, d)
-    h = torch.bmm(xe, p.wi.to(dt))
-    g = torch.bmm(xe, p.wg.to(dt))
-    ye = torch.bmm(F.silu(g) * h, p.wo.to(dt)).view(E * C, d)
-    contrib = ye[torch.clamp(slot, max=E * C - 1)] * sw[:, None].to(dt)
-    contrib = torch.where(keep[:, None], contrib, contrib.new_zeros(()))
+    rel = slot - e0 * C
+    mine = keep & (rel >= 0) & (rel < E_loc * C)
+    rel = torch.where(mine, rel, torch.full_like(rel, E_loc * C))
+    buckets = xt.new_zeros((E_loc * C + 1, d)).index_put((rel,), xt[st])
+    xe = buckets[:E_loc * C].view(E_loc, C, d)
+    h = torch.bmm(xe, wi.to(dt))
+    g = torch.bmm(xe, wg.to(dt))
+    ye = torch.bmm(F.silu(g) * h, wo.to(dt)).view(E_loc * C, d)
+    contrib = ye[torch.clamp(rel, max=E_loc * C - 1)] * sw[:, None].to(dt)
+    contrib = torch.where(mine[:, None], contrib, contrib.new_zeros(()))
     # each token's sorted positions, ascending: its experts in id order
     inv = torch.empty_like(order)
     inv[order] = torch.arange(TK, device=order.device)
@@ -114,24 +163,63 @@ def experts(p, xt, slot, st, sw, keep, order, E: int, C: int):
 
 
 def moe_apply(p, x, cfg) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """x (B, S, d) -> ((B, S, d), aux {``AUX_KEYS``: float32 0-d})."""
+    """x (B, S, d) -> ((B, S, d), aux {``AUX_KEYS``: float32 0-d}).  The
+    tokens are ``group_plan``'s G groups (one without a mesh) of xt (G,
+    T / G, d) placed ("batch", None, None); each rank routes and
+    dispatches the groups it holds (``per_shard``), on the
+    expert-parallel path where ``expert_ranks`` says so."""
     B, S, d = x.shape
     E, K = cfg.n_experts, cfg.top_k
     T = B * S
-    xt = _replicated(x.reshape(T, d))
-    logits, probs, gate_w, gate_e = route(p, xt, cfg)
-    logits, probs = _replicated(logits), _replicated(probs)
-    C = int(cfg.capacity_factor * K * T / E) or 1
-    slot, st, sw, keep, order = dispatch(gate_e, gate_w, E, C)
-    slot = _replicated(slot)
-    out = experts(p, xt, slot, st, sw, keep, order, E, C)
-    me = probs.mean(dim=0)
-    ce = torch.zeros(E, device=x.device).index_add_(
-        0, gate_e.reshape(-1), torch.ones(T * K, device=x.device)) / (T * K)
+    G, Tl, C = group_plan(T, cfg)
+    grouped = ("batch", None, None)
+    xt = constrain(x.reshape(G, Tl, d), grouped)
+    mp = expert_ranks(E, G)
+    rules = current_rules()
+    e0 = 0
+    if mp:
+        # each "model" rank holds E / mp experts whatever "expert" maps to
+        rules = rules.with_overrides(expert="model")
+        e0 = xt.device_mesh.get_local_rank("model") * (E // mp)
+
+    def local(xt, router, wi, wg, wo):
+        outs, kept, counts, prob_sums, z_sums = [], [], [], [], []
+        for g in range(xt.shape[0]):
+            logits, probs, gate_w, gate_e = route(router, xt[g], cfg)
+            slot, st, sw, keep, order = dispatch(gate_e, gate_w, E, C)
+            outs.append(experts(wi, wg, wo, xt[g], slot, st, sw, keep,
+                                order, C, e0))
+            kept.append(keep.float().sum())
+            counts.append(torch.zeros(E, device=xt.device).index_add_(
+                0, gate_e.reshape(-1),
+                torch.ones(Tl * K, device=xt.device)))
+            prob_sums.append(probs.sum(dim=0))
+            z_sums.append(torch.logsumexp(logits, dim=-1).square().sum())
+        out, prob_sums, z_sums = (torch.stack(outs),
+                                  torch.stack(prob_sums), torch.stack(z_sums))
+        if mp:
+            # the expert-parallel partial is summed over "model" in
+            # float32; the router's sums, the same on every "model" rank,
+            # enter that sum as 1 / mp of each, so their grads (each
+            # rank's through its own routing) add up to one
+            out, prob_sums, z_sums = out.float(), prob_sums / mp, z_sums / mp
+        return out, torch.stack(kept), torch.stack(counts), prob_sums, z_sums
+    w_axes = ("expert" if mp else None, None, None)
+    partial = ("model",) if mp else ()
+    out, kept, counts, prob_sums, z_sums = per_shard(
+        local, (xt, p.router, p.wi, p.wg, p.wo),
+        (grouped, (None, None), w_axes, w_axes, w_axes),
+        [(grouped, (G, Tl, d), partial), (("batch",), (G,)),
+         (("batch", None), (G, E)), (("batch", None), (G, E), partial),
+         (("batch",), (G,), partial)], rules=rules)
+    if mp:
+        out = constrain(out, grouped)      # the all-reduce over "model"
+    me = prob_sums.sum(dim=0) / T
+    ce = counts.sum(dim=0) / (T * K)
     aux = {"moe_lb_loss": E * torch.sum(me * ce),
-           "moe_z_loss": torch.logsumexp(logits, dim=-1).square().mean(),
-           "moe_dropped": 1.0 - keep.float().mean()}
-    return out.view(B, S, d), aux
+           "moe_z_loss": z_sums.sum() / T,
+           "moe_dropped": 1.0 - kept.sum() / (T * K)}
+    return out.to(x.dtype).reshape(B, S, d), aux
 
 
 class MoE(nn.Module):

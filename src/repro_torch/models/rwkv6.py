@@ -13,8 +13,9 @@ for CUDA tensors, its plain version for CPU tensors) at any sequence
 length: the JAX model's chunked form needs S to be a multiple of its chunk
 (``wkv6_chunked`` asserts it), the function itself does not.  Train mode
 runs ``wkv6_chunked``, the JAX model's chunked form in plain PyTorch under
-autograd (the kernel has no backward), at any length.  Decode is one plain
-step.  Caches are updated in place.
+autograd (the kernel has no backward), at any length; under a mesh each
+rank runs it on its own batch rows and heads (``partition.per_shard``).
+Decode is one plain step.  Caches are updated in place.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels import ops
-from ..sharding.partition import constrain
+from ..sharding.partition import constrain, per_shard
 from .layers import RMSNorm, dense_init_, normal_, uniform_
 
 LORA_R = 64
@@ -130,7 +131,12 @@ def rwkv_time_apply(p, x, cfg, mode: str, cache: Optional[Dict] = None):
     if mode == "decode":
         out, new_state = wkv6_step(r, k, v, w, p.u, state)
     elif mode == "train":
-        out, new_state = wkv6_chunked(r, k, v, w, p.u, state)
+        # under a mesh, per batch row and head on each rank's shards
+        ax = ("batch", None, "tensor", None)
+        out, new_state = per_shard(
+            lambda *a: wkv6_chunked(*a, state), (r, k, v, w, p.u),
+            (ax,) * 4 + (("tensor", None),),
+            [(ax, r.shape), (("batch", "tensor", None, None), (B, H, N, N))])
     else:
         out, new_state = ops.wkv6(r, k, v, w, p.u, state)
     # simplified group norm over each head

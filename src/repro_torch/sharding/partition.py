@@ -38,7 +38,7 @@ from dataclasses import dataclass
 from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import torch
-from torch.distributed.tensor import (DTensor, Replicate, Shard,
+from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
                                       distribute_tensor)
 
 
@@ -106,6 +106,24 @@ def mesh_shape(mesh) -> MeshShape:
     if isinstance(mesh, MeshShape):
         return mesh
     return MeshShape(tuple(mesh.mesh_dim_names), tuple(mesh.mesh.shape))
+
+
+def mesh_sizes(mesh) -> Dict[str, int]:
+    """{axis name: size} of a ``DeviceMesh`` or a ``MeshShape``."""
+    ms = mesh_shape(mesh)
+    return dict(zip(ms.axis_names, ms.shape))
+
+
+def rule_size(name: str, mesh, rules: ShardingRules) -> int:
+    """The product of ``mesh``'s sizes of the mesh axes that logical axis
+    ``name`` maps to under ``rules`` (axes the mesh lacks count 1), before
+    any divisibility drop: the MoE's dispatch group count for "batch"."""
+    m = rules.to_dict().get(name)
+    sizes = mesh_sizes(mesh)
+    n = 1
+    for a in () if m is None else (m,) if isinstance(m, str) else m:
+        n *= sizes.get(a, 1)
+    return n
 
 
 Spec = Tuple[Any, ...]
@@ -308,6 +326,67 @@ def constrain(x, axes: Tuple[Optional[str], ...],
     if tuple(x.placements) != placements:
         x = x.redistribute(x.device_mesh, placements)
     return _GradTo.apply(x, placements) if x.requires_grad else x
+
+
+def per_shard(fn, args, in_axes, out_specs,
+              rules: Optional[ShardingRules] = None):
+    """``fn(*args)`` on each rank's local shards, for a computation that
+    is independent across the dims the mesh splits (a recurrence per
+    batch row and head, a dispatch per token group): the port's
+    counterpart of a JAX ``shard_map`` region.
+
+    Outside a mesh, or when no arg is a DTensor, this is ``fn(*args)``.
+    Under one, each DTensor arg is first constrained to its logical axes
+    (``in_axes``; None passes it as it is) and handed to ``fn`` as its
+    local shard; a plain arg (None, a number, a 0-d tensor) passes as it
+    is.  Each output is a local tensor that becomes a DTensor placed by
+    its ``out_specs`` entry, (logical axes, global shape[, mesh axes over
+    which it is a partial sum]), under ``rules`` (the active ones by
+    default; the args are constrained under them too).  In the
+    backward pass an arg's grad keeps its shards, and on a mesh dim that
+    splits the computation while the arg is replicated there (a weight
+    beside batch-sharded activations) it is a partial sum, which the
+    grad's next redistribute reduces."""
+    mesh = _CURRENT["mesh"]
+    if mesh is None or not any(isinstance(a, DTensor) for a in args):
+        return fn(*args)
+    rules = rules or _CURRENT["rules"]
+    placed = [constrain(a, ax, rules) if isinstance(a, DTensor)
+              and ax is not None else a for a, ax in zip(args, in_axes)]
+    dts = [a for a in placed if isinstance(a, DTensor)]
+    dmesh = dts[0].device_mesh
+    split = {i for a in dts for i, p in enumerate(a.placements)
+             if isinstance(p, Shard)}
+    local = []
+    for a in placed:
+        if isinstance(a, DTensor):
+            grad = [p if isinstance(p, Shard) else
+                    Partial() if i in split else Replicate()
+                    for i, p in enumerate(a.placements)]
+            a = a.to_local(grad_placements=grad)
+        local.append(a)
+    outs = fn(*local)
+    single = not isinstance(outs, tuple)
+    wrapped = []
+    for o, (ax, shape, *partial) in zip((outs,) if single else outs,
+                                        out_specs):
+        pl = list(spec_to_placements(
+            logical_to_spec(ax, dmesh, rules, tuple(shape)), dmesh))
+        for a in partial[0] if partial else ():
+            pl[dmesh.mesh_dim_names.index(a)] = Partial()
+        wrapped.append(DTensor.from_local(
+            o.contiguous(), dmesh, pl, run_check=False,
+            shape=torch.Size(shape),
+            stride=_contiguous_strides(shape)))
+    return wrapped[0] if single else tuple(wrapped)
+
+
+def _contiguous_strides(shape) -> Tuple[int, ...]:
+    out, n = [], 1
+    for s in reversed(tuple(shape)):
+        out.append(n)
+        n *= s
+    return tuple(reversed(out))
 
 
 def distribute(t: torch.Tensor, sharding: NamedSharding) -> DTensor:

@@ -101,9 +101,11 @@ def make_train_step(api, *, peak_lr: float = 3e-4, warmup: int = 100,
     ``batch`` holds tensors on the model's device: {tokens, labels[,
     loss_mask][, patches | frames]}.  ``accum`` > 1 splits each of them
     into that many microbatches and averages their float32 grads and
-    metrics.  ``cast_bf16``: the forward
-    and backward run on bf16 copies of the float32 masters
-    (``_compute_params``), and the update applies to the masters.
+    metrics; a batch whose rows do not divide by ``accum`` (or, under
+    compression, by the pod count) raises ``ValueError``.
+    ``cast_bf16``: the forward and backward run on bf16 copies of the
+    float32 masters (``_compute_params``), and the update applies to the
+    masters.
     metrics: loss, total_loss, grad_norm (the L2 norm of all float32
     grads) and lr, as 0-d tensors on the device.
 
@@ -129,11 +131,18 @@ def make_train_step(api, *, peak_lr: float = 3e-4, warmup: int = 100,
         """The microbatches, each placed on the mesh (this pod's share of
         the batch under compression)."""
         full = {k: unshard(v) for k, v in batch.items()}
+        B = full["tokens"].shape[0]
         if do_compress:
-            share = full["tokens"].shape[0] // n_pods
+            if B % n_pods:
+                raise ValueError(f"global batch {B} is no multiple of the "
+                                 f"pod count {n_pods}")
+            share = B // n_pods
             full = {k: v[pod * share:(pod + 1) * share]
                     for k, v in full.items()}
-        n = full["tokens"].shape[0] // accum
+            B = share
+        if B % accum:
+            raise ValueError(f"batch {B} is no multiple of accum {accum}")
+        n = B // accum
         micro = [{k: v[i * n:(i + 1) * n] for k, v in full.items()}
                  for i in range(accum)]
         if run_mesh is None:

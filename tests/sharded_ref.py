@@ -1,25 +1,36 @@
 """References for the port's sharded-step tests, computed in the test
 process: the JAX package's step and the port's unsharded step, from the
-same JAX-initialized state and numpy batches (smoke_variant(smollm-135m)
-at float32)."""
+same initial state and numpy batches, for the smoke variant of any arch
+(``smoke_variant(smollm-135m)`` by default) at float32; and the JAX step
+under a mesh, in a subprocess (``JaxMeshRuns``).  The port's helpers
+import no JAX, so the port-against-unsharded tests also run where JAX
+cannot be imported; there ``first_state`` is the port's own seeded
+initial state and the JAX comparisons skip."""
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import importlib.util
+import json
+import os
+import subprocess
+import sys
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import torch
 
-from repro import configs as jconfigs
-from repro.models.api import ModelAPI as JModelAPI
-from repro.train import trainstep as jtrainstep
 from repro_torch import configs
+from repro_torch.configs.base import ShapeConfig
 from repro_torch.models.api import ModelAPI
-from repro_torch.models.convert import (flatten_paths, train_state_from_jax,
+from repro_torch.models.convert import (flatten_paths, nest,
+                                        train_state_from_jax,
                                         train_state_to_jax)
 from repro_torch.train import trainstep
+from torch_ranks import as_float64, double_params, float64_compute
 
+#: the JAX package's references can run here (JAX importable)
+HAVE_JAX = importlib.util.find_spec("jax") is not None
+ARCH = "smollm-135m"
 B, S, STEPS, ACCUM = 8, 32, 2, 2
 KW = dict(peak_lr=1e-3, warmup=1, total_steps=10)
 #: one compressed step that already updates the params (lr = peak_lr)
@@ -30,34 +41,80 @@ KW_COMPRESS = dict(peak_lr=1e-3, warmup=0, total_steps=10)
 SHARD_TOL = 1e-6
 #: against the JAX step: ``tests/test_torch_train.py``'s trajectory bound
 TRAJ_TOL = 1e-4
+#: optimizer moments against the JAX step, relative L2 per leaf:
+#: ``tests/test_torch_recurrent_train.py``'s bound (rwkv's u enters
+#: through r . (u k) summed over tokens of both signs, so its grad and
+#: moments carry that cancellation's float32 noise)
+MOMENT_TOL = 1e-3
+ROOT = os.path.join(os.path.dirname(__file__), "..")
 
 
-def smoke(opt: str = "adamw", jax_pkg: bool = False):
-    c = (jconfigs if jax_pkg else configs)
-    return dataclasses.replace(c.smoke_variant(c.ARCHS["smollm-135m"]),
-                               optimizer=opt)
+def smoke(opt: str = "adamw", jax_pkg: bool = False, arch: str = ARCH,
+          cfg: dict | None = None):
+    """The smoke variant of ``arch`` with ``opt`` and the ``cfg``
+    overrides."""
+    if jax_pkg:
+        from repro import configs as c
+    else:
+        c = configs
+    return dataclasses.replace(c.smoke_variant(c.ARCHS[arch]),
+                               optimizer=opt, **(cfg or {}))
 
 
-def jax_state(opt: str, seed: int = 0, grad_compression: bool = False):
-    japi = JModelAPI(smoke(opt, jax_pkg=True))
+def jax_state(opt: str, seed: int = 0, grad_compression: bool = False,
+              arch: str = ARCH, cfg: dict | None = None):
+    import jax
+
+    from repro.models.api import ModelAPI as JModelAPI
+    from repro.train import trainstep as jtrainstep
+    japi = JModelAPI(smoke(opt, jax_pkg=True, arch=arch, cfg=cfg))
     return japi, jtrainstep.init_state(japi, jax.random.key(seed),
                                        grad_compression=grad_compression)
 
 
 def host(tree):
+    import jax
     return jax.tree.map(np.asarray, tree)
 
 
-def make_batches(seed: int, n: int = STEPS, b: int = B):
+def first_state(opt: str, seed: int = 0, arch: str = ARCH,
+                cfg: dict | None = None):
+    """An initial train state in the JAX layout (numpy): the JAX
+    package's (``jax_state``) where JAX is installed, else the port's own
+    drawn from a seeded generator."""
+    if HAVE_JAX:
+        return host(jax_state(opt, seed, arch=arch, cfg=cfg)[1])
+    api = ModelAPI(smoke(opt, arch=arch, cfg=cfg), device="cpu")
+    return train_state_to_jax(trainstep.init_state(
+        api, torch.Generator().manual_seed(seed)))
+
+
+def make_batches(seed: int, n: int = STEPS, b: int = B, arch: str = ARCH):
+    """``n`` train batches of ``b`` rows by ``ModelAPI.input_specs`` at S:
+    tokens and labels in [1, 256), and for the vlm and audio families
+    seeded normal ``patches`` or ``frames``."""
     rng = np.random.default_rng(seed)
-    return [{"tokens": rng.integers(1, 256, (b, S)).astype(np.int32),
-             "labels": rng.integers(1, 256, (b, S)).astype(np.int32)}
-            for _ in range(n)]
+    specs = ModelAPI(smoke(arch=arch), device="meta").input_specs(
+        ShapeConfig("t", "train", S, b))
+    out = []
+    for _ in range(n):
+        batch = {k: rng.integers(1, 256, specs[k]).astype(np.int32)
+                 for k in ("tokens", "labels")}
+        for k in ("patches", "frames"):
+            if k in specs:
+                batch[k] = rng.standard_normal(specs[k]).astype(np.float32)
+        out.append(batch)
+    return out
 
 
-def jax_run(opt, batches, accum=ACCUM, seed=0):
+def jax_run(opt, batches, accum=ACCUM, seed=0, arch: str = ARCH,
+            cfg: dict | None = None):
     """(initial state, final state, per-step metrics) of the JAX step."""
-    japi, st = jax_state(opt, seed)
+    import jax
+    import jax.numpy as jnp
+
+    from repro.train import trainstep as jtrainstep
+    japi, st = jax_state(opt, seed, arch=arch, cfg=cfg)
     first = host(st)
     step = jax.jit(jtrainstep.make_train_step(japi, accum=accum, **KW))
     metrics = []
@@ -67,17 +124,107 @@ def jax_run(opt, batches, accum=ACCUM, seed=0):
     return first, host(st), metrics
 
 
-def port_run(opt, state, batches, accum=ACCUM, kw=KW):
+def port_run(opt, state, batches, accum=ACCUM, kw=KW, arch: str = ARCH,
+             cfg: dict | None = None, float64: bool = False):
     """(final state in the JAX layout, per-step metrics) of the port's
-    unsharded step from a JAX state."""
-    api = ModelAPI(smoke(opt), device="cpu")
+    unsharded step from a JAX state; with ``float64`` the weights, inputs
+    and compute are float64 (``torch_ranks.float64_compute``)."""
+    cfg = dict(cfg or {})
+    if float64:
+        cfg.update(dtype="float64", param_dtype="float64")
+        state = as_float64(state)
+        batches = [as_float64(b) for b in batches]
+    api = ModelAPI(smoke(opt, arch=arch, cfg=cfg), device="cpu")
+    if float64:
+        double_params(api.model)
     st = train_state_from_jax(state, api.model)
     step = trainstep.make_train_step(api, accum=accum, **kw)
     metrics = []
-    for b in batches:
-        st, m = step(st, {k: torch.from_numpy(v) for k, v in b.items()})
-        metrics.append({k: float(v) for k, v in m.items()})
+    with float64_compute() if float64 else contextlib.nullcontext():
+        for b in batches:
+            st, m = step(st, {k: torch.from_numpy(v) for k, v in b.items()})
+            metrics.append({k: float(v) for k, v in m.items()})
     return train_state_to_jax(st), metrics
+
+
+JAX_MESH = r"""
+import json, sys
+import numpy as np, jax, jax.numpy as jnp
+import sharded_ref as ref
+from repro.compat import make_mesh
+from repro.sharding import partition
+from repro.train import trainstep
+from repro_torch.models.convert import flatten_paths
+spec = json.load(open(sys.argv[1] + ".json"))
+mesh = make_mesh(tuple(spec["shape"]), tuple(spec["names"]))
+rules = getattr(partition, spec["rules"])
+for run in spec["runs"]:
+    data = np.load(sys.argv[1] + "." + run["name"] + ".in.npz")
+    batches = [{k.split("/", 1)[1]: jnp.asarray(data[k]) for k in data.files
+                if k.startswith(f"{i}/")} for i in range(run["steps"])]
+    japi, st = ref.jax_state(run["optimizer"], run["seed"], arch=run["arch"],
+                             cfg=run["cfg"])
+    metrics = []
+    with partition.use_mesh(mesh, rules):
+        st = jax.device_put(st, partition.shardings_for_tree(
+            trainstep.state_axes(japi), mesh, rules, st))
+        step = jax.jit(trainstep.make_train_step(
+            japi, mesh=mesh, accum=run["accum"], **ref.KW))
+        for b in batches:
+            st, m = step(st, b)
+            metrics.append({k: float(v) for k, v in m.items()})
+    out = sys.argv[1] + "." + run["name"]
+    np.savez(out + ".npz", **flatten_paths(ref.host(st)))
+    json.dump(metrics, open(out + ".out.json", "w"))
+"""
+
+
+class JaxMeshRuns:
+    """The JAX step under a mesh, in a subprocess with that many host
+    devices (the device count is process-wide): each run {"name",
+    "arch", "cfg", "optimizer", "seed", "accum", "batches"} starts from
+    ``jax_state(optimizer, seed, arch=, cfg=)``, is placed by the JAX
+    ``state_axes`` under ``rules`` and steps through its batches under
+    ``use_mesh``.  ``results()`` waits and returns {name: (the final
+    state in the JAX layout as numpy, per-step metrics)}."""
+
+    def __init__(self, path: str, shape, names, rules: str, runs):
+        self.path, self.names = path, [r["name"] for r in runs]
+        for r in runs:
+            np.savez(f"{path}.{r['name']}.in.npz",
+                     **{f"{i}/{k}": v for i, b in enumerate(r["batches"])
+                        for k, v in b.items()})
+        with open(path + ".json", "w") as f:
+            json.dump({"shape": list(shape), "names": list(names),
+                       "rules": rules,
+                       "runs": [dict({k: v for k, v in r.items()
+                                      if k != "batches"},
+                                     steps=len(r["batches"]))
+                                for r in runs]}, f)
+        n = int(np.prod(shape))
+        env = dict(os.environ, JAX_PLATFORMS="cpu",
+                   XLA_FLAGS=f"--xla_force_host_platform_device_count={n}",
+                   PYTHONPATH=os.pathsep.join(
+                       [os.path.join(ROOT, "src"), os.path.dirname(__file__)]))
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", JAX_MESH, path], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    def results(self, timeout: float = 300.0):
+        try:
+            _, err = self.proc.communicate(timeout=timeout)
+        finally:
+            if self.proc.poll() is None:
+                self.proc.kill()
+                self.proc.communicate()
+        assert self.proc.returncode == 0, err[-3000:]
+        out = {}
+        for name in self.names:
+            base = f"{self.path}.{name}"
+            with open(base + ".out.json") as f:
+                metrics = json.load(f)
+            out[name] = (nest(dict(np.load(base + ".npz"))), metrics)
+        return out
 
 
 def rel_l2(a, b) -> float:
@@ -85,12 +232,13 @@ def rel_l2(a, b) -> float:
     return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
 
 
-def worst(got, want):
-    """(the worst relative L2 over the leaves of two JAX-layout trees,
-    its path); the trees must hold the same leaves."""
+def worst(got, want, prefix: str = ""):
+    """(the worst relative L2 over the float leaves of two JAX-layout
+    trees whose paths start with ``prefix``, its path); the trees must
+    hold the same leaves."""
     g, w = flatten_paths(got), flatten_paths(want)
     assert sorted(g) == sorted(w), sorted(set(g) ^ set(w))
     errs = {p: rel_l2(g[p], w[p]) for p in w
-            if np.asarray(w[p]).dtype.kind == "f"}
+            if np.asarray(w[p]).dtype.kind == "f" and p.startswith(prefix)}
     p = max(errs, key=errs.get)
     return errs[p], p

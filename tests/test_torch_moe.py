@@ -105,7 +105,8 @@ def test_moe_apply_matches_jax(Bx, Sx, cf, drops):
     want, jaux = jmoe.moe_apply(jp, jnp.asarray(x), jcfg)
     with torch.no_grad():
         got, aux = m(t(x), cfg)
-        logits, probs, gate_w, gate_e = moe.route(m, t(x).view(-1, 64), cfg)
+        logits, probs, gate_w, gate_e = moe.route(m.router,
+                                                  t(x).view(-1, 64), cfg)
         C = int(cf * cfg.top_k * Bx * Sx / cfg.n_experts) or 1
         _, _, _, keep, _ = moe.dispatch(gate_e, gate_w, cfg.n_experts, C)
     want_e, want_keep = jax_routing(jp, x, jcfg)

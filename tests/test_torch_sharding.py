@@ -362,3 +362,80 @@ def test_count_params_and_plans_equal_the_jax_package(name):
             jacc, jrules = jdryrun.auto_plan(jcfg, shape, jmesh(mshape))
             assert (acc, rules.rules) == (jacc, jrules.rules), \
                 (shape.name, mshape)
+
+
+@pytest.mark.parametrize("name", ["smollm-135m", "qwen3-moe-30b-a3b",
+                                  "rwkv6-3b", "recurrentgemma-9b",
+                                  "internvl2-26b", "whisper-medium"])
+def test_lower_train_steps_every_family(name):
+    """``_lower_train`` places every family's smoke state on a one-rank
+    ("data", "model") mesh and its step takes a batch of
+    ``input_specs`` with accum 2 (the JAX dry-run test lowers four of
+    them on 8 host devices): the loss equals the unsharded step's from
+    the same weights, and every parameter is a DTensor on the mesh."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs.base import ShapeConfig
+    from torch_ranks import one_rank
+    cfg = configs.smoke_variant(configs.ARCHS[name])
+    shape = ShapeConfig("t", "train", 16, 4)
+    rng = np.random.default_rng(0)
+    specs = ModelAPI(cfg, device="meta").input_specs(shape)
+    batch = {k: torch.from_numpy(
+        rng.integers(1, 256, s).astype(np.int32) if k in ("tokens", "labels")
+        else rng.standard_normal(s).astype(np.float32))
+        for k, s in specs.items()}
+    kw = dict(peak_lr=1e-3, warmup=0, total_steps=10)
+    plain = ModelAPI(cfg, device="cpu")
+    state = trainstep.init_state(plain, torch.Generator().manual_seed(0))
+    _, want = trainstep.make_train_step(plain, accum=2, **kw)(state, batch)
+    with one_rank():
+        mesh = init_device_mesh("cpu", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        api = ModelAPI(cfg, device="cpu")
+        state, step = dryrun._lower_train(
+            api, shape, mesh, partition.DEFAULT_RULES, False, 2,
+            generator=torch.Generator().manual_seed(0), **kw)
+        assert all(isinstance(p, DTensor) and p.device_mesh == mesh
+                   for p in api.model.parameters())
+        _, got = step(state, batch)
+        assert got["loss"].item() == want["loss"].item()
+        assert got["grad_norm"].item() == want["grad_norm"].item()
+
+
+MOE_T = (8, 12, 64, 96, 128, 1000, 1024, 4096)
+
+
+@pytest.mark.parametrize("mshape", list(MESHES))
+@pytest.mark.parametrize("rules", RULES)
+def test_moe_dispatch_groups_equal_the_jax_package(rules, mshape):
+    """``_dispatch_groups`` and the per-group capacity of the port's MoE
+    equal the JAX ``moe_apply``'s (its group count halved while T % G or
+    T // G < k, then C = int(cf * k * T / (G * E)) or 1), on stand-in
+    meshes, for both MoE configs at several token counts; and the
+    expert-parallel path applies where the JAX ``_token_path``'s
+    conditions hold."""
+    for arch in ("qwen3-moe-30b-a3b", "qwen3-moe-235b-a22b"):
+        cfg, jcfg = configs.ARCHS[arch], jconfigs.ARCHS[arch]
+        jrules = getattr(jpartition, rules)
+        with jpartition.use_mesh(jmesh(mshape), jrules):
+            jg = jmoe._dispatch_groups(jcfg)
+        with partition.use_mesh(tmesh(mshape), getattr(partition, rules)):
+            assert moe._dispatch_groups(cfg) == jg
+            for T in MOE_T:
+                G = jg
+                while T % G or T // G < jcfg.top_k:
+                    G //= 2
+                Tl = T // G
+                C = int(jcfg.capacity_factor * jcfg.top_k * Tl
+                        / jcfg.n_experts) or 1
+                assert moe.group_plan(T, cfg) == (G, Tl, C), (arch, T)
+                sizes = dict(zip(MESHES[mshape], mshape))
+                mp = sizes.get("model", 1)
+                gm = sizes.get("pod", 1) * sizes.get("data", 1)
+                ep = mp > 1 and jcfg.n_experts % mp == 0 and G == gm
+                assert moe.expert_ranks(cfg.n_experts, G) == \
+                    (mp if ep else 0), (arch, T)
+    # no mesh: one group, whatever T
+    assert moe.group_plan(3, configs.ARCHS["qwen3-moe-30b-a3b"])[0] == 1

@@ -284,6 +284,27 @@ def test_sharding_options_raise():
             api.train_loss(b)
 
 
+def test_indivisible_batches_raise():
+    """A batch of rows that do not divide by ``accum``, or by the pod
+    count under compression, raises ``ValueError`` naming both numbers,
+    where the JAX step fails at its microbatch reshape (B 3, accum 2),
+    instead of leaving the odd rows untrained.  The pod case runs on 2
+    gloo ranks, a (2, 1, 1) ("pod", "data", "model") mesh, with B 3."""
+    import torch_ranks
+    japi, jstate, api, state = build()
+    b = {k: v[:3] for k, v in batches(0, 1, api.cfg.vocab)[0].items()}
+    jstep = jax.jit(jtrainstep.make_train_step(japi, accum=2))
+    with pytest.raises(TypeError, match="reshape"):
+        jstep(jstate, jx(b))
+    step = trainstep.make_train_step(api, accum=2)
+    with pytest.raises(ValueError, match="batch 3 is no multiple of "
+                       "accum 2"):
+        step(state, tx(b))
+    errors = torch_ranks.run(torch_ranks.odd_pod_batch, 2, b)
+    assert errors == ["global batch 3 is no multiple of the pod count "
+                      "2"] * 2
+
+
 def test_grad_compression_without_a_pod_axis_matches_jax():
     """``grad_compression`` on a step with no "pod" axis (here, no mesh)
     compresses nothing, as in the JAX step: the state carries a float32

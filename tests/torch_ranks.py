@@ -183,6 +183,35 @@ def one_rank():
         dist.destroy_process_group()
 
 
+@contextlib.contextmanager
+def float64_compute():
+    """Every ``.float()`` gives float64 while this is active, so a model
+    whose weights and inputs are float64 computes in float64 throughout,
+    its own float32 steps (norms, recurrences, router, loss, optimizer)
+    included: ``chip_smoke.py``'s ``float64_grads`` twin."""
+    from unittest import mock
+
+    def f64(t, *a, **k):
+        return t if t.dtype == torch.float64 else t.double()
+    with mock.patch.object(torch.Tensor, "float", f64):
+        yield
+
+
+def double_params(model) -> None:
+    """Every parameter of ``model`` as float64, the float32 ones of a
+    float64 config (norm weights, decays) too."""
+    for p in model.parameters():
+        p.data = p.data.double()
+
+
+def as_float64(tree):
+    """A nested dict of numpy arrays with every float32 leaf as float64."""
+    if isinstance(tree, dict):
+        return {k: as_float64(v) for k, v in tree.items()}
+    a = np.asarray(tree)
+    return a.astype(np.float64) if a.dtype == np.float32 else a
+
+
 def batches_torch(batches):
     return [{k: torch.from_numpy(v) for k, v in b.items()} for b in batches]
 
@@ -197,7 +226,11 @@ def _mesh(shape, names):
 def train_runs(rank, world, runs, save_dir=None):
     """Each run: {"name", "mesh": (shape, names), "rules", "optimizer",
     "accum", "compress", "state": the JAX train state (numpy), "batches",
-    "kw": make_train_step's schedule[, "capture": True]}.  Each is built
+    "kw": make_train_step's schedule[, "arch" (smollm-135m by default),
+    "cfg": overrides of its smoke variant][, "float64": True: weights,
+    inputs and compute in float64 (``float64_compute``)][, "capture":
+    True][, "ckpt": a directory: the final state saved there and restored
+    with ``shardings=``]}.  Each is built
     from the JAX state, placed by ``shard_state``, stepped through its
     batches, checked with ``shard_report``, and gathered.  Returns
     {name: (per-step metrics, the final state in the JAX layout on rank 0
@@ -216,11 +249,19 @@ def train_runs(rank, world, runs, save_dir=None):
     from repro_torch.train import trainstep
     out = {}
     for i, r in enumerate(runs):
+        over = dict(r.get("cfg", {}))
+        f64 = r.get("float64", False)
+        if f64:
+            over.update(dtype="float64", param_dtype="float64")
         cfg = dataclasses.replace(
-            configs.smoke_variant(configs.ARCHS["smollm-135m"]),
-            optimizer=r["optimizer"], **r.get("cfg", {}))
+            configs.smoke_variant(configs.ARCHS[r.get("arch",
+                                                      "smollm-135m")]),
+            optimizer=r["optimizer"], **over)
         api = ModelAPI(cfg, device="cpu")
-        state = train_state_from_jax(r["state"], api.model)
+        if f64:
+            double_params(api.model)
+        state = train_state_from_jax(
+            as_float64(r["state"]) if f64 else r["state"], api.model)
         mesh = _mesh(*r["mesh"])
         rules = getattr(partition, r["rules"])
         shardings = trainstep.state_shardings(
@@ -231,9 +272,12 @@ def train_runs(rank, world, runs, save_dir=None):
             api, mesh=mesh, rules=rules, accum=r["accum"],
             grad_compression=r["compress"], **r["kw"])
         metrics, captured = [], None
-        for j, b in enumerate(batches_torch(r["batches"])):
+        data = [as_float64(b) for b in r["batches"]] if f64 \
+            else r["batches"]
+        for j, b in enumerate(batches_torch(data)):
             cap = {} if r.get("capture") and j == 0 else None
-            state, m = step(state, b, cap)
+            with float64_compute() if f64 else contextlib.nullcontext():
+                state, m = step(state, b, cap)
             metrics.append({k: float(v) for k, v in m.items()})
             if cap is not None:
                 captured = {k: {p: (to_host(x[0]), x[1].item())
@@ -248,7 +292,34 @@ def train_runs(rank, world, runs, save_dir=None):
         out[r["name"]] = (metrics, host if rank == 0 else None, faults)
         if r.get("capture"):
             out[r["name"]] += (captured,)
+        if r.get("ckpt"):
+            out[r["name"]] += (_save_and_restore(r["ckpt"], cfg, state,
+                                                 host, shardings, f64),)
     return out
+
+
+def _save_and_restore(root, cfg, state, host, shardings, f64=False):
+    """Save a sharded state in ``root`` (rank 0 writes), restore it with
+    ``shardings=`` into a fresh state of ``cfg`` (float64 params with
+    ``f64``) and compare: (every leaf equal to ``host`` bit for bit, the
+    restored shards' faults)."""
+    from repro_torch.models.api import ModelAPI
+    from repro_torch.models.convert import flatten_paths, train_state_to_jax
+    from repro_torch.runtime.checkpoint import CheckpointStore
+    from repro_torch.train import trainstep
+    store = CheckpointStore(root, async_io=False)
+    store.save(int(state["step"]), state)
+    api = ModelAPI(cfg, device="cpu")
+    if f64:
+        double_params(api.model)
+    like = trainstep.init_state(api)
+    restored, _ = store.restore(like=like, shardings=shardings)
+    got, want = (flatten_paths(train_state_to_jax(restored)),
+                 flatten_paths(host))
+    same = sorted(got) == sorted(want) and all(
+        np.asarray(got[k]).tobytes() == np.asarray(want[k]).tobytes()
+        for k in want)
+    return same, shard_report(restored, shardings)
 
 
 def restore_and_step(rank, world, save_dir, mesh, rules, opt, batch, kw):
@@ -282,6 +353,28 @@ def restore_and_step(rank, world, save_dir, mesh, rules, opt, batch, kw):
     keep = rank == 0
     return (restored if keep else None, stepped if keep else None,
             float(metrics["loss"]), faults)
+
+
+def odd_pod_batch(rank, world, batch):
+    """The message of the ``ValueError`` that a compressed step over
+    ``world`` pods, a (world, 1, 1) mesh, raises on ``batch``
+    (numpy), on smoke_variant(smollm-135m)."""
+    from repro_torch import configs
+    from repro_torch.models.api import ModelAPI
+    from repro_torch.train import trainstep
+    api = ModelAPI(configs.smoke_variant(configs.ARCHS["smollm-135m"]),
+                   device="cpu")
+    mesh = _mesh((world, 1, 1), ("pod", "data", "model"))
+    state = trainstep.shard_state(
+        api, trainstep.init_state(api, torch.Generator().manual_seed(0),
+                                  grad_compression=True),
+        mesh, grad_compression=True)
+    step = trainstep.make_train_step(api, mesh=mesh, grad_compression=True)
+    try:
+        step(state, batches_torch([batch])[0])
+    except ValueError as e:
+        return str(e)
+    return None
 
 
 def compress_steps(rank, world, grads, n_pods):
