@@ -152,8 +152,9 @@
     as a user runs it, with ``TMPDIR`` set to a fresh directory (it makes
     its own corpus), and again with ``--resume --steps 2``, which must
     resume from step 50; every loss finite.
-18. Train rwkv6-3b at full width and depth (32 layers, 3.07 B
-    parameters; run right after phase 17, as 19 and 21 are): float32
+18. Train rwkv6-3b at full width and 16 of its 32 layers (1.70 B
+    parameters; uncut until phase 29 took its time; run right after phase 17,
+    as 19 and 21 are): float32
     masters, bf16 compute, remat, AdamW, 10 steps of B 4 x S 1024 (peak lr
     1e-3, warmup 3) on batches of ``ZerrowDataPipeline`` over one of phase
     14's shards, its metadata join on the card.  The launch counts, set to
@@ -167,9 +168,10 @@
     (2.69 B parameters with the untied embedding and head), B 1 x S 4096
     (the 2048 window cuts train attention), as phase 18; the
     card-against-CPU step at that depth.
-20. Serve qwen3-moe-30b-a3b at full width and 16 of its 48 layers (10.6
-    B parameters, 42.4 GB of float32 weights; run right after phase 9):
-    phase 8's traffic, 16 flash launches a prefill at hd 128 with 32 query
+20. Serve qwen3-moe-30b-a3b at full width and 8 of its 48 layers (5.6
+    B parameters, 22.4 GB of float32 weights; 16 layers until phase 29
+    took its time; run right after phase 9):
+    phase 8's traffic, 8 flash launches a prefill at hd 128 with 32 query
     and 4 KV heads; each prefill's ``moe_dropped`` printed.  Round 0's
     prefill through the kernel against chunked attention, in bf16 and
     float32, with the routing of every layer recorded in both: the
@@ -195,21 +197,23 @@
     1500 frames, 16 heads, G 1, hd 64, non-causal) and decoder BOS prefill
     (S = T = 1), in bf16 and float32, each against its plain version;
     then the first two timed as in phase 3 (kernel, plain, sdpa, bound).
-23. Serve internvl2-26b at full width and 24 of its 48 layers (10.5 B
-    parameters, 42.1 GB of float32 weights) through ``ModelAPI.prefill``
+23. Serve internvl2-26b at full width and 12 of its 48 layers (5.9 B
+    parameters, 23.4 GB of float32 weights; 24 layers until phase 29
+    took its time) through ``ModelAPI.prefill``
     and ``serve_step``: 2 rounds of batch 8, each sequence 256 patch
     embeddings (seeded normals: the InternViT frontend is a stub) before
     a left-padded prompt of 256-512 random tokens, a cache of 1280, 32 new
-    tokens.  Each prefill must launch flash 24 times, every launch at G 6
+    tokens.  Each prefill must launch flash 12 times, every launch at G 6
     over the patches and the text.  Round 0's prefill against the plain
     path in bf16 and float32, every flash launch of one more prefill
     against its plain version on its own inputs, decode against prefill
     in float32 (two sequences), a profiled warm round.
-24. Serve whisper-medium uncut (24 + 24 layers, 0.76 B parameters) the
+24. Serve whisper-medium at full width and 12 + 12 of its 24 + 24
+    layers (0.41 B parameters; uncut until phase 29 took its time) the
     same way: 2 rounds of batch 8, 1500 frame embeddings a sequence
     (seeded normals: the conv frontend is a stub) and a BOS prompt, a
-    cache of 1500, 32 new tokens.  Each prefill must launch flash 48
-    times: 24 non-causal over the 1500 frames (the encoder) and 24 at S =
+    cache of 1500, 32 new tokens.  Each prefill must launch flash 24
+    times: 12 non-causal over the 1500 frames (the encoder) and 12 at S =
     T = 1 (the decoder's BOS).  The same checks as phase 23.
 25. Train internvl2-26b at full width and 5 layers (3.13 B parameters,
     56.3 GB at 18 bytes a parameter), B 2 x (256 patches + 768 tokens of
@@ -248,6 +252,34 @@
     of its own beside the card's name and power limit.  The ranks have a
     deadline; a hang or a failed rank kills them all and fails the
     phase.
+29. Serving under a mesh, in the same ranks after phase 28 (world size 1
+    on one card: the ("data", "model") mesh (1, 1)), through
+    ``launch/dryrun.py``'s ``_lower_prefill`` and ``_lower_decode``: (a)
+    smollm-135m uncut, B 8 prompts of one length drawn from 256-512,
+    caches of 1024, 16 greedy decode steps, in float32 and in bf16 (the
+    weights cast as ``_serve_param_specs`` gives them), each unsharded and
+    on the mesh under SERVE_RULES and SERVE_BIG_RULES, and with the int8
+    KV cache under SERVE_RULES; (b) rwkv6-3b and qwen3-moe-30b-a3b at 2
+    layers (the MoE at capacity factor n_experts / top_k: no pair drops,
+    whatever its groups) and recurrentgemma-9b at one group, full width,
+    float32, 8 decode steps (the hybrid's 2044-token prompts put them
+    across its 2048-slot ring's wrap).  The launch counts are set to 0
+    just before each run and read just after: the mesh launches each
+    model kernel as often as unsharded.  Float32: every step's logits
+    within 1e-5 relative L2 of the unsharded run's, and the same tokens;
+    bf16: the prefill logits within 4e-2, the differing tokens printed.
+    Then in
+    this process (c) flash at qwen3-moe-30b-a3b's prefill (H 32 / KV 4,
+    hd 128) and at recurrentgemma-9b's attention (H 16 / KV 1, hd 256,
+    window 2048), wkv6 at rwkv6-3b's 40 heads and rglru_scan at 4096 and
+    2560 lanes, launched on every rank's head, channel or lane slice on
+    a model axis of 2 and 4: each held to its plain version on the slice
+    and compared bit for bit with the same slice of the whole-tensor
+    launch; (d) qwen3-moe-30b-a3b's decode cache (B 8, T 1024, H 32, KV
+    4, hd 128) in float32 and int8 split into 2, 4 and 8 length parts,
+    the valid length ending inside a part and at least one part wholly
+    past it: the split-K (``decode_partials``, ``combine_partials``)
+    within 1e-5 of the one-part ``decode_attention``.
 
 Every check that fails exits non-zero before the last line is printed.
 Without a CUDA card, or run from a directory without the repository's
@@ -2606,8 +2638,9 @@ def phase_train_vs_cpu(batches, cfg=None, what: str = "train",
                        floor: bool = False) -> None:
     """Phases 16, 18, 19 and 21: the model (smollm-135m at full width
     unless ``cfg`` is given) in float32 on the card and on the CPU from the
-    same weights (drawn on the card, copied to the CPU): step 0's grads
-    per leaf, then the loss and grad norm of two train steps.
+    same weights (drawn on the card, copied to the CPU): two train steps,
+    the grads of the first per leaf (as the step captured them) and the
+    loss and grad norm of both.
 
     For the moe family a top-k decided on probabilities a few 1e-7 apart
     can flip between the devices, and a flip changes that token's output
@@ -2636,19 +2669,32 @@ def phase_train_vs_cpu(batches, cfg=None, what: str = "train",
     apis["cpu"].model.load_state_dict(apis["cuda"].model.state_dict())
     secs = {"weights": time.perf_counter() - t0}
     n_moe = len(apis["cpu"].model.blocks) if cfg.n_experts else 0
-    routes, losses, grads = {}, {}, {}
-    for name, api in apis.items():
-        t1 = time.perf_counter()
-        with recording_routes() as log:
-            loss, _ = api.train_loss(to_device(b[0], api.device))
-        routes[name] = [log[:n_moe]]
-        losses[name] = loss.item()
-        params = [p for leaf in jax_leaves(api.model) for p in leaf.params]
-        grads[name] = list(torch.autograd.grad(loss, params))
-        del loss
-        secs[f"grads {name}"] = time.perf_counter() - t1
+    grads = {}
     if floor:
         grads["float64"] = float64_grads(apis["cpu"], b[0])
+    # two steps on each device; step 0's grads are those the first step
+    # captured, on the weights both devices start from
+    routes, losses, metrics = {}, {}, {}
+    for name, api in apis.items():
+        t1 = time.perf_counter()
+        state = init_state(api)
+        step = make_train_step(api, peak_lr=TRAIN_LR, warmup=1,
+                               total_steps=10)
+        routes[name], ms = [], []
+        for i, x in enumerate(b):
+            cap = {} if i == 0 else None
+            with recording_routes() as log:
+                state, m = step(state, to_device(x, api.device), cap)
+            routes[name].append(log[:n_moe])
+            ms.append((float(m["loss"]), float(m["grad_norm"])))
+            if cap is not None:
+                grads[name] = [t for leaf in jax_leaves(api.model)
+                               for t in leaf.unstack(cap["grads"][leaf.path])]
+                del cap
+        metrics[name] = ms
+        losses[name] = ms[0][0]
+        del state, step
+        secs[f"two steps {name}"] = time.perf_counter() - t1
     # relative L2 per JAX leaf, from its per-layer pieces
     paths = [leaf.path for leaf in jax_leaves(apis["cpu"].model)]
     sizes = [len(leaf.params) for leaf in jax_leaves(apis["cpu"].model)]
@@ -2674,21 +2720,6 @@ def phase_train_vs_cpu(batches, cfg=None, what: str = "train",
               f"leaves: " + ", ".join(f"{p} {v!r}" for p, v in top))
     worst = max(rels["cuda", "cpu"].values())
     del grads
-    metrics = {}
-    for name, api in apis.items():
-        t1 = time.perf_counter()
-        state = init_state(api)
-        step = make_train_step(api, peak_lr=TRAIN_LR, warmup=1,
-                               total_steps=10)
-        ms = []
-        for x in b:
-            with recording_routes() as log:
-                state, m = step(state, to_device(x, api.device))
-            routes[name].append(log[:n_moe])
-            ms.append((float(m["loss"]), float(m["grad_norm"])))
-        metrics[name] = ms
-        del state, step
-        secs[f"two steps {name}"] = time.perf_counter() - t1
     print(f"{what}, card vs cpu: seconds {secs}")
     flips = [route_flips(x, y)[0]
              for x, y in zip(routes["cuda"], routes["cpu"])]
@@ -2699,8 +2730,8 @@ def phase_train_vs_cpu(batches, cfg=None, what: str = "train",
           f"{worst!r} (tol {GRAD_TOL}); loss cuda {losses['cuda']!r} cpu "
           f"{losses['cpu']!r}; (loss, grad norm) of two steps cuda "
           f"{metrics['cuda']} cpu {metrics['cpu']}" + (
-              f"; token-layers routed differently in the loss forward and "
-              f"the two steps: {flips} of {total} each" if n_moe else ""))
+              f"; token-layers routed differently in the two steps: "
+              f"{flips} of {total} each" if n_moe else ""))
     check(all(f <= FLIP_MAX * total for f in flips),
           f"{what}, card vs cpu: routing flips {flips} above {FLIP_MAX} of "
           f"{total} token-layers")
@@ -2716,7 +2747,7 @@ def phase_train_vs_cpu(batches, cfg=None, what: str = "train",
     check(abs(losses["cuda"] - losses["cpu"]) <= (
         STEP_TOL if flips[0] == 0 else FLIP_LOSS_TOL) * abs(losses["cpu"]),
         f"{what}, card vs cpu: the loss of step 0's forward")
-    for f, (l1, g1), (l0, g0) in zip(flips[1:], metrics["cuda"],
+    for f, (l1, g1), (l0, g0) in zip(flips, metrics["cuda"],
                                      metrics["cpu"]):
         if f == 0:
             check(abs(l1 - l0) <= STEP_TOL * abs(l0)
@@ -2833,10 +2864,11 @@ def _free_port() -> int:
 
 
 def _shard_rank(rank, world, port, q, cfg, device, batches, root,
-                families):
-    """One rank of phase 28, in a spawned process: joins the NCCL group
-    (gloo on the CPU), runs ``shard_runs`` and puts its result (or its
-    traceback) on ``q``."""
+                families, serve_cells):
+    """One rank of phases 28 and 29, in a spawned process: joins the NCCL
+    group (gloo on the CPU), runs ``shard_runs`` (which runs phase 29's
+    ``mesh_serve_runs`` last) and puts its result (or its traceback) on
+    ``q``."""
     import traceback
     os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port),
                       RANK=str(rank), WORLD_SIZE=str(world),
@@ -2847,7 +2879,7 @@ def _shard_rank(rank, world, port, q, cfg, device, batches, root,
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         q.put((rank, True, shard_runs(cfg, device, batches, root,
-                                      families)))
+                                      families, serve_cells)))
     except BaseException:
         tb = traceback.format_exc()
         print(f"sharded rank {rank}:\n{tb}", file=sys.stderr, flush=True)
@@ -2858,7 +2890,8 @@ def _shard_rank(rank, world, port, q, cfg, device, batches, root,
     torch.distributed.destroy_process_group()
 
 
-def shard_runs(cfg, device, batches, root, families) -> dict:
+def shard_runs(cfg, device, batches, root, families,
+               serve_cells=()) -> dict:
     """Phase 28's work on one rank: ``cfg`` trained SHARD_STEPS steps
     from the same seeded weights unsharded, on a ("data", "model") mesh
     under DEFAULT_RULES and FSDP_RULES, and on a ("pod", "data", "model")
@@ -3004,6 +3037,9 @@ def shard_runs(cfg, device, batches, root, families) -> dict:
         torch.cuda.empty_cache()
     out["families"] = {name: family_runs(*spec, dev, mesh2, dsync)
                        for name, spec in families.items()}
+    t0 = time.perf_counter()
+    out["serve"] = mesh_serve_runs(serve_cells, dev, mesh2, dsync)
+    out["serve_s"] = time.perf_counter() - t0
     return out
 
 
@@ -3114,15 +3150,18 @@ def family_runs(cfg, B, S, dev, mesh, dsync) -> dict:
             "seconds": time.perf_counter() - t0}
 
 
-def phase_sharded(batches, cfg=None, families=None):
+def phase_sharded(batches, cfg=None, families=None, serve_cells=None):
     """Phase 28: sharded training of smollm-135m at full width on
     ``torch.cuda.device_count()`` NCCL ranks, one card each (one on a
     one-card machine), spawned with a deadline: on a hang or a failed rank
-    every rank is killed and the phase fails."""
+    every rank is killed and the phase fails.  The same ranks then run
+    phase 29's mesh serving (``serve_mesh_cells()`` by default), which
+    ``phase_serve_sharded`` reports."""
     import multiprocessing
     cfg = cfg or get_arch("smollm-135m")
     families = {name: (big_cfg(name, n), B, S) for name, (n, B, S) in (
         SHARD_FAMILIES if families is None else families).items()}
+    serve_cells = serve_mesh_cells() if serve_cells is None else serve_cells
     world = torch.cuda.device_count() if CUDA.type == "cuda" else 1
     root = tempfile.mkdtemp(prefix="zerrow-sharded-")
     ctx = multiprocessing.get_context("spawn")
@@ -3131,7 +3170,7 @@ def phase_sharded(batches, cfg=None, families=None):
     b = [{k: np.array(x[k]) for k in ("tokens", "labels")}
          for x in batches[:SHARD_STEPS]]
     procs = [ctx.Process(target=_shard_rank, args=(
-        r, world, port, q, cfg, CUDA.type, b, root, families))
+        r, world, port, q, cfg, CUDA.type, b, root, families, serve_cells))
         for r in range(world)]
     t0 = time.perf_counter()
     for p in procs:
@@ -3173,7 +3212,8 @@ def phase_sharded(batches, cfg=None, families=None):
           f"steps; world size {out['world']} (one NCCL rank a card); "
           f"meshes (data, model) {out['mesh2']} and (pod, data, model) "
           f"{out['mesh3']}; {time.perf_counter() - t0:.1f} s with the "
-          f"ranks' start")
+          f"ranks' start, of which phase 29's mesh serving took "
+          f"{out['serve_s']:.1f} s in the ranks")
     plain = out["runs"]["unsharded"]
     for name, r in out["runs"].items():
         med = statistics.median(r["times"][1:])
@@ -3264,6 +3304,389 @@ def phase_sharded(batches, cfg=None, families=None):
 
 
 # --------------------------------------------------------------------------
+# serving under a mesh (phase 29)
+# --------------------------------------------------------------------------
+
+# 29a: smollm-135m uncut, B 8 prompts of one length drawn from [256, 512],
+# caches of 1024 positions, 16 decode steps, in float32 and in bf16 (the
+# weights as ``_serve_param_specs`` gives them), each without a mesh and
+# on the ("data", "model") mesh under SERVE_RULES and SERVE_BIG_RULES, and
+# with the int8 KV cache under SERVE_RULES.  29b: the other three families
+# at full width and cut depth, float32, (n_layers, B, S, cache length,
+# decode steps): the hybrid's 2044-token prompts put its 8 decode steps
+# across the wrap of its 2048-slot ring (slots 2044-2047, then 0-3)
+SERVE_MESH = dict(B=8, S=(256, 512), cache=1024, steps=16)
+SERVE_MESH_CUT = {"rwkv6-3b": (2, 4, 256, 512, 8),
+                  "recurrentgemma-9b": (3, 2, 2044, 4096, 8),
+                  "qwen3-moe-30b-a3b": (2, 8, 256, 512, 8)}
+# float32, mesh against unsharded, relative L2 of every step's logits: at
+# world size 1 every shard is the whole tensor and the sums are the same;
+# the split-K decode's one part divides by the sum of exp(s - m) after the
+# P V product where the softmax divides before it (rounding alone)
+SERVE_MESH_TOL = 1e-5
+# 29c: the per-rank slices under SERVE_RULES on a model axis of 2 and 4
+SLICE_MP = (2, 4)
+# 29d: qwen3-moe-30b-a3b's decode cache, split into length parts; the
+# valid length ends inside a part and leaves at least one part wholly
+# past it at every split
+SPLIT_SHAPE = dict(B=8, T=1024, H=32, KV=4, hd=128)
+SPLIT_PARTS, SPLIT_LEN = (2, 4, 8), 300
+
+
+def serve_mesh_cells() -> list:
+    """Phase 29's serve cells: {"label", "cfg", "B", "S", "cache",
+    "steps", "bf16" (the weights cast to bf16), "rules": the mesh runs'
+    rule sets}.  Built in the parent, so a rehearsal on the CPU patches
+    ``get_arch`` there."""
+    rng = np.random.default_rng(29)
+    S = int(rng.integers(SERVE_MESH["S"][0], SERVE_MESH["S"][1] + 1))
+    base = get_arch("smollm-135m")
+    cells = []
+    for bf16 in (False, True):
+        for kv in ("model", "int8"):
+            cfg = dataclasses.replace(base, kv_cache_dtype=kv, **(
+                {} if bf16 else {"dtype": "float32"}))
+            cells.append(dict(
+                label=f"{base.name} {'bf16' if bf16 else 'float32'}"
+                + (" int8 KV" if kv == "int8" else ""), cfg=cfg,
+                B=SERVE_MESH["B"], S=S, cache=SERVE_MESH["cache"],
+                steps=SERVE_MESH["steps"], bf16=bf16,
+                rules=("SERVE_RULES",) if kv == "int8"
+                else ("SERVE_RULES", "SERVE_BIG_RULES")))
+    for name, (n, B, S, cache, steps) in SERVE_MESH_CUT.items():
+        cfg = dataclasses.replace(big_cfg(name, n), dtype="float32")
+        if cfg.n_experts:
+            # no pair drops: with more than one data shard each group
+            # takes its own capacity (ROADMAP queue 3 item r)
+            cfg = dataclasses.replace(
+                cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+        cells.append(dict(label=f"{name} ({n} layers) float32", cfg=cfg,
+                          B=B, S=S, cache=cache, steps=steps, bf16=False,
+                          rules=("SERVE_RULES",)))
+    return cells
+
+
+def serve_steps(api, tokens, cache_len: int, steps: int, dsync,
+                lowered=None):
+    """Prefill ``tokens`` into caches of ``cache_len`` positions, then
+    ``steps`` greedy decode steps; ``lowered``: the (prefill, decode)
+    functions of ``_lower_prefill`` / ``_lower_decode``, None to run
+    unsharded.  The launch counts are set to 0 just before and read just
+    after.  Returns (each step's logits gathered, float32 (B, V) on the
+    device, the launches, prefill seconds, decode seconds)."""
+    from repro_torch.sharding.partition import unshard
+    B, S = tokens.shape
+    pshape = ShapeConfig("p", "prefill", cache_len, B)
+    if lowered is None:
+        prefill = lambda b: api.prefill(b, pshape)          # noqa: E731
+        decode = api.serve_step
+    else:
+        prefill, decode = lowered
+    ops.reset_launch_counts()
+    dsync()
+    t0 = time.perf_counter()
+    out, caches = prefill({"tokens": tokens})
+    logits = [unshard(out)[:, -1].float()]
+    dsync()
+    t_pre = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for i in range(steps):
+        tok = logits[-1].argmax(-1).to(torch.int32)[:, None]
+        pos = torch.full((B, 1), S + i, dtype=torch.int32,
+                         device=tokens.device)
+        out, caches = decode({"tokens": tok, "positions": pos}, caches)
+        logits.append(unshard(out)[:, -1].float())
+    dsync()
+    launches = {k: ops.launch_counts[k] for k in MODEL_KERNELS}
+    return logits, launches, t_pre, time.perf_counter() - t0
+
+
+def mesh_serve_runs(cells, dev, mesh, dsync) -> list:
+    """Phase 29a-b in the ranks of phase 28: each cell's model from the
+    same seeded weights (cast to bf16 for a bf16 cell), served unsharded
+    and then on ``mesh`` under each of its rule sets through
+    ``dryrun._lower_prefill`` / ``_lower_decode``; every step's logits of
+    a mesh run against the unsharded run's (relative L2), the tokens each
+    chose and the launches of each run.  Returns one dict per cell."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.launch import dryrun
+    from repro_torch.sharding import partition
+    out = []
+    for c in cells:
+        cfg, B, S = c["cfg"], c["B"], c["S"]
+        g = torch.Generator(device=dev).manual_seed(29)
+        tokens = torch.randint(1, cfg.vocab, (B, S), generator=g,
+                               device=dev, dtype=torch.int32)
+
+        def model():
+            api = ModelAPI(cfg, device=dev)
+            api.model.init(torch.Generator(device=dev).manual_seed(0))
+            return api
+        t0 = time.perf_counter()
+        api = model()
+        n_params = sum(p.numel() for p in api.model.parameters())
+        if c["bf16"]:
+            for p in api.model.parameters():
+                p.data = p.data.to(torch.bfloat16)
+        plain, plain_launches, *plain_s = serve_steps(
+            api, tokens, c["cache"], c["steps"], dsync)
+        plain_toks = torch.stack([x.argmax(-1) for x in plain[:-1]], 1)
+        r = {"label": c["label"], "layout": layout(api.model),
+             "params": n_params, "B": B, "S": S, "cache": c["cache"],
+             "steps": c["steps"], "bf16": c["bf16"],
+             "unsharded": dict(launches=plain_launches, seconds=plain_s),
+             "mesh": {}, "shape": tuple(mesh.mesh.shape)}
+        if cfg.family == "hybrid":
+            r["ring"] = min(c["cache"], cfg.local_window)
+        del api
+        for rules in c["rules"]:
+            api = model()
+            specs = dryrun._serve_param_specs(api) if c["bf16"] \
+                else dryrun._param_specs(api)
+            R = getattr(partition, rules)
+            pre = dryrun._lower_prefill(
+                api, ShapeConfig("p", "prefill", c["cache"], B), mesh, R,
+                specs)
+            dec = dryrun._lower_decode(
+                api, ShapeConfig("d", "decode", c["cache"], B), mesh, R,
+                specs)
+            want = torch.bfloat16 if c["bf16"] else torch.float32
+            dtensors = sum(isinstance(p, DTensor) and p.dtype == want
+                           for p in api.model.parameters())
+            logits, launches, *secs = serve_steps(
+                api, tokens, c["cache"], c["steps"], dsync,
+                (pre.fn, dec.fn))
+            toks = torch.stack([x.argmax(-1) for x in logits[:-1]], 1)
+            r["mesh"][rules] = dict(
+                launches=launches, seconds=secs, dtensors=dtensors,
+                tensors=sum(1 for _ in api.model.parameters()),
+                errs=[rel_l2(a, b) for a, b in zip(logits, plain)],
+                finite=all(bool(torch.isfinite(x).all()) for x in logits),
+                tokens_differ=int((toks != plain_toks).sum()),
+                tokens=int(toks.numel()))
+            del api, pre, dec, logits
+        r["seconds"] = time.perf_counter() - t0
+        del plain
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        out.append(r)
+    return out
+
+
+def _same_bits(a, b) -> bool:
+    ints = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    a, b = a.contiguous(), b.contiguous()
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.view(ints.get(a.dtype, a.dtype)), b.view(ints.get(b.dtype,
+                                                            b.dtype)))
+
+
+def slice_vs_whole(name, per_rank, tol) -> dict:
+    """One kernel on the slices of its inputs that each rank gets: every
+    output of each launch held to its plain version on the same slice
+    (``tol`` as rtol = atol, as phases 3 and 7 hold the kernels; 0 is bit
+    for bit) and compared with the same slice of the kernel's
+    whole-tensor output, whose bits it should be.  ``per_rank``:
+    (the slice's launch, its plain version, the whole outputs' slices)
+    triples; a launch may return a tuple (out, state)."""
+    def tup(x):
+        return x if isinstance(x, tuple) else (x,)
+    worst, differ = 0.0, []
+    for i, (launch, plain, want) in enumerate(per_rank):
+        for j, (got, ref_out, whole) in enumerate(zip(
+                tup(launch()), tup(plain()), tup(want))):
+            err = (got.float() - ref_out.float()).abs().max().item()
+            worst = max(worst, err)
+            check(torch.allclose(got.float(), ref_out.float(), rtol=tol,
+                                 atol=tol),
+                  f"per-rank {name} slice {i} output {j}: {err!r} from its "
+                  f"plain version (rtol = atol = {tol!r})")
+            if not _same_bits(got, whole):
+                differ.append((i, j, (got.float() - whole.float()).abs()
+                               .max().item()))
+    return dict(launches=len(per_rank), worst_plain=worst, differ=differ)
+
+
+def phase_rank_slices() -> dict:
+    """Phase 29c: flash, wkv6 and rglru_scan on the head, channel or lane
+    slices that each rank gets under SERVE_RULES on a model axis of 2 and
+    4, at the models' serving shapes, in bf16 (the scans' decays, bonus,
+    state and RG-LRU coefficients float32): each launch against its plain
+    version on the slice and against the whole-tensor launch's slice."""
+    out = {}
+    bf = torch.bfloat16
+    for label, (B, S, H, KV, hd, window) in (
+            ("qwen3-moe-30b-a3b prefill", (8, 512, 32, 4, 128, 0)),
+            ("recurrentgemma-9b attention", (8, 512, 16, 1, 256, WINDOW))):
+        q, k, v = attn_inputs(290, B, S, S, H, KV, hd, bf)
+        whole = ops.flash_attention(q, k, v, causal=True, window=window)
+        for mp in SLICE_MP:
+            Hl, G, kvs = H // mp, H // KV, KV % mp == 0
+            runs = []
+            for r in range(mp):
+                h0, k0 = r * Hl, r * (KV // mp) if kvs else 0
+                kl = k[:, :, k0:k0 + KV // mp] if kvs else k
+                vl = v[:, :, k0:k0 + KV // mp] if kvs else v
+                ks, vs = attention._kv_of_heads(kl, vl, h0, Hl, G, k0)
+                ql = q[:, :, h0:h0 + Hl]
+                runs.append((
+                    lambda ql=ql, ks=ks, vs=vs: ops.flash_attention(
+                        ql, ks, vs, causal=True, window=window),
+                    lambda ql=ql, ks=ks, vs=vs: ref.attention_ref(
+                        ql, ks, vs, causal=True, window=window),
+                    whole[:, :, h0:h0 + Hl]))
+            out[f"flash, {label} (B {B}, S {S}, H {H}, KV {KV}, hd {hd}"
+                f"{f', window {window}' if window else ''}) on a model axis"
+                f" of {mp}: {Hl} query heads against {ks.shape[2]} KV"] = \
+                slice_vs_whole("flash_attention", runs, TOL[bf])
+    B, S, H, N = (WKV_SHAPE[x] for x in "BSHN")
+    g = torch.Generator(device=CUDA).manual_seed(291)
+    args = wkv_inputs(g, B, S, H, N, bf, "model")
+    whole = ops.wkv6(*args)
+    for mp in SLICE_MP:
+        Hl = H // mp
+        runs = []
+        for r in range(mp):
+            sl = slice(r * Hl, (r + 1) * Hl)
+            part = tuple(x[:, :, sl].contiguous() for x in args[:4]) + (
+                args[4][sl].contiguous(), args[5][:, sl].contiguous())
+            runs.append((lambda a=part: ops.wkv6(*a),
+                         lambda a=part: ref.wkv6_ref(*a),
+                         (whole[0][:, :, sl], whole[1][:, sl])))
+        out[f"wkv6, rwkv6-3b (B {B}, S {S}, {H} heads of {N}) on a model "
+            f"axis of {mp}: {Hl} heads"] = slice_vs_whole(
+            "wkv6", runs, WKV_TOL[bf])
+    B, S = LRU_SHAPE["B"], LRU_SHAPE["S"]
+    for W in (LRU_SHAPE["W"], 2560):
+        g = torch.Generator(device=CUDA).manual_seed(292)
+        a = torch.rand(B, S, W, generator=g, device=CUDA) * 0.5 + 0.5
+        b = torch.randn(B, S, W, generator=g, device=CUDA)
+        h0 = torch.randn(B, W, generator=g, device=CUDA)
+        whole = ops.rglru_scan(a, b, h0)
+        for mp in SLICE_MP:
+            Wl = W // mp
+            runs = []
+            for r in range(mp):
+                sl = slice(r * Wl, (r + 1) * Wl)
+                part = (a[:, :, sl].contiguous(), b[:, :, sl].contiguous(),
+                        h0[:, sl].contiguous())
+                runs.append((lambda x=part: ops.rglru_scan(*x),
+                             lambda x=part: ref.rglru_ref(*x),
+                             (whole[0][:, :, sl], whole[1][:, sl])))
+            out[f"rglru_scan (B {B}, S {S}, {W} lanes) on a model axis of "
+                f"{mp}: {Wl} lanes"] = slice_vs_whole("rglru_scan", runs,
+                                                      0.0)
+    for label, r in out.items():
+        print(f"per-rank slices, {label}: {r['launches']} launches, worst "
+              f"max |diff| from the plain version {r['worst_plain']!r}; "
+              + ("every output is the whole-tensor launch's slice bit for "
+                 "bit" if not r["differ"] else "outputs that differ from "
+                 f"the whole-tensor launch's slice (launch, output, max "
+                 f"|diff|): {r['differ']}"))
+    return out
+
+
+def phase_split_k() -> dict:
+    """Phase 29d: qwen3-moe-30b-a3b's decode cache in float32 and in its
+    int8 form (dequantised), split into 2, 4 and 8 length parts with the
+    valid length ending inside a part: ``decode_partials`` on each part
+    and ``combine_partials`` against one-part ``decode_attention``."""
+    B, T, H, KV, hd = (SPLIT_SHAPE[x] for x in ("B", "T", "H", "KV", "hd"))
+    g = torch.Generator(device=CUDA).manual_seed(293)
+    q = torch.randn(B, 1, H, hd, generator=g, device=CUDA)
+    k = torch.randn(B, T, KV, hd, generator=g, device=CUDA)
+    v = torch.randn(B, T, KV, hd, generator=g, device=CUDA)
+    kq, ks = attention.quant_kv(k)
+    vq, vs = attention.quant_kv(v)
+    forms = {"float32": (k, v),
+             "int8": (attention.dequant_kv(kq, ks, torch.float32),
+                      attention.dequant_kv(vq, vs, torch.float32))}
+    out = {}
+    for form, (kc, vc) in forms.items():
+        want = attention.decode_attention(q, kc, vc, SPLIT_LEN)
+        for P in SPLIT_PARTS:
+            n = T // P
+            parts = [attention.decode_partials(q, kc[:, i:i + n],
+                                               vc[:, i:i + n], SPLIT_LEN, i)
+                     for i in range(0, T, n)]
+            m, l, o = (torch.stack(x) for x in zip(*parts))
+            got = attention.combine_partials(m, l, o).reshape(B, 1, H, hd)
+            past = sum(i >= SPLIT_LEN for i in range(0, T, n))
+            w = torch.exp(m - m.amax(dim=0))
+            err = rel_l2(got, want)
+            out[f"{form} {P} parts"] = err
+            print(f"split-K, {form} cache (B {B}, T {T}, H {H}, KV {KV}, "
+                  f"hd {hd}), {P} parts of {n}, valid length {SPLIT_LEN}: "
+                  f"{past} parts wholly past it (their weight "
+                  f"{w[-past:].abs().max().item()!r}); relative L2 against "
+                  f"one part {err!r} (tol {SERVE_MESH_TOL!r})")
+            check(past >= 1 and bool(torch.isfinite(got).all())
+                  and bool((w[-past:] == 0).all())
+                  and err <= SERVE_MESH_TOL,
+                  f"split-K {form} {P} parts: {err!r}")
+    return out
+
+
+def phase_serve_sharded(cells: list) -> dict:
+    """Phase 29: phase 28's ranks' mesh serving (``mesh_serve_runs``,
+    ``cells``) checked and printed, then the per-rank kernel slices (29c)
+    and the split-K (29d) on the card.  Returns the mesh runs' launches
+    of each model kernel, summed."""
+    device = smi_line() if CUDA.type == "cuda" else "cpu"
+    launched = {k: 0 for k in MODEL_KERNELS}
+    for c in cells:
+        plain = c["unsharded"]
+        print(f"mesh serving, {c['label']} ({c['layout']}, {c['params']} "
+              f"parameters, B {c['B']} x S {c['S']}, caches of "
+              f"{c['cache']}, {c['steps']} decode steps), unsharded: "
+              f"prefill {plain['seconds'][0]:.3f} s, decode "
+              f"{plain['seconds'][1]:.3f} s, launches "
+              f"{plain['launches']} [{device}]")
+        if "ring" in c:
+            print(f"mesh serving, {c['label']}: a ring of {c['ring']} slots;"
+                  f" decode writes slots {c['S'] % c['ring']}-"
+                  f"{(c['S'] + c['steps'] - 1) % c['ring']}")
+            check(c["S"] < c["ring"] < c["S"] + c["steps"],
+                  f"mesh serving {c['label']}: decode does not cross the "
+                  "ring's wrap")
+        for rules, r in c["mesh"].items():
+            print(f"mesh serving, {c['label']}, {c['shape']} mesh {rules}: "
+                  f"{r['dtensors']} of {r['tensors']} weights DTensors; "
+                  f"prefill {r['seconds'][0]:.3f} s, decode "
+                  f"{r['seconds'][1]:.3f} s; launches {r['launches']}; "
+                  f"logits against unsharded, relative L2 by step "
+                  f"{[float(f'{e:.3g}') for e in r['errs']]} (prefill "
+                  f"{r['errs'][0]!r}, worst {max(r['errs'])!r}); "
+                  f"{r['tokens_differ']} of {r['tokens']} tokens differ "
+                  f"[{device}]")
+            check(r["finite"], f"mesh serving {c['label']} {rules}: "
+                  "non-finite logits")
+            check(r["dtensors"] == r["tensors"], f"mesh serving "
+                  f"{c['label']} {rules}: weights off the mesh or not cast")
+            check(r["launches"] == plain["launches"]
+                  and sum(r["launches"].values()) > 0,
+                  f"mesh serving {c['label']} {rules}: launches "
+                  f"{r['launches']} against {plain['launches']}")
+            if c["bf16"]:
+                check(r["errs"][0] <= LOGIT_TOL[torch.bfloat16],
+                      f"mesh serving {c['label']} {rules}: prefill logits "
+                      f"{r['errs'][0]!r}")
+            else:
+                check(max(r["errs"]) <= SERVE_MESH_TOL
+                      and r["tokens_differ"] == 0,
+                      f"mesh serving {c['label']} {rules}: logits "
+                      f"{max(r['errs'])!r} or {r['tokens_differ']} tokens")
+            for k in MODEL_KERNELS:
+                launched[k] += r["launches"][k]
+    t0 = time.perf_counter()
+    slices = phase_rank_slices()
+    split = phase_split_k()
+    return dict(launches=launched, slices=slices, split=split,
+                seconds=time.perf_counter() - t0)
+
+
+# --------------------------------------------------------------------------
 # training rwkv6-3b, recurrentgemma-9b and qwen3-moe-30b-a3b; serving the
 # MoE
 # --------------------------------------------------------------------------
@@ -3271,7 +3694,8 @@ def phase_sharded(batches, cfg=None, families=None):
 # (n_layers, B, S, n_layers of the float32 card-against-CPU step); None
 # keeps the published depth.  At 18 bytes a parameter (float32 master and
 # grad, AdamW's mu and nu, the bf16 casts) one card holds rwkv6-3b whole
-# (55.3 GB), recurrentgemma-9b as one group of (rec, rec, attn) with its
+# (55.3 GB; trained at 16 of its 32 layers, 30.7 GB, since phase 29 took
+# its time), recurrentgemma-9b as one group of (rec, rec, attn) with its
 # untied embedding and head (2.69 B parameters, 48.4 GB) and
 # qwen3-moe-30b-a3b at 4 of 48 layers (3.11 B, 56 GB); every width is the
 # published one (PERF.md section 4)
@@ -3281,14 +3705,15 @@ def phase_sharded(batches, cfg=None, families=None):
 # whisper-medium at 2 encoder and 2 decoder layers.  The last column is
 # the peak lr: at d_model 6144, internvl2-26b's loss rose from step 3 on
 # at TRAIN_LR's 1e-3 (11.6 -> 24.3 by step 5), so it trains at 1e-4
-BIG_TRAIN = {"rwkv6-3b": (None, 4, 1024, 2, TRAIN_LR),
+BIG_TRAIN = {"rwkv6-3b": (16, 4, 1024, 2, TRAIN_LR),
              "recurrentgemma-9b": (3, 1, 4096, 3, TRAIN_LR),
              "qwen3-moe-30b-a3b": (4, 2, 1024, 2, TRAIN_LR),
              "internvl2-26b": (5, 2, 768, 1, 1e-4),
              "whisper-medium": (None, 8, 448, 2, TRAIN_LR)}
 BIG_STEPS, BIG_WARMUP = 10, 3
-# serving qwen3-moe-30b-a3b: 16 of 48 layers, 42.4 GB of float32 masters
-MOE_SERVE_LAYERS = 16
+# serving qwen3-moe-30b-a3b: 8 of 48 layers, 22.4 GB of float32 masters
+# (16 layers, 42.4 GB, until phase 29 took its time)
+MOE_SERVE_LAYERS = 8
 MODEL_KERNELS = ("flash_attention", "wkv6", "rglru_scan")
 
 
@@ -3543,8 +3968,11 @@ def phase_serve_moe():
 # 64, non-causal
 VLM_SHAPE = dict(B=8, S=768, T=768, H=48, KV=8, hd=128)
 ENC_SHAPE = dict(B=8, S=N_FRAMES, T=N_FRAMES, H=16, KV=16, hd=64)
-# serving internvl2-26b: 24 of 48 layers, 42.1 GB of float32 masters
-VLM_SERVE_LAYERS = 24
+# serving internvl2-26b: 12 of 48 layers, 23.4 GB of float32 masters
+# (24 layers, 42.1 GB, until phase 29 took its time); whisper-medium at 12
+# + 12 of 24 + 24 layers (uncut until then)
+VLM_SERVE_LAYERS = 12
+WHISPER_SERVE_LAYERS = 12
 WHISPER_BOS = 50258          # <|startoftranscript|>
 
 
@@ -3635,14 +4063,14 @@ def serve_family_rounds(api, rounds, shape, max_new: int, offset: int,
 
 
 def phase_serve_family(name: str) -> dict:
-    """Phases 23 (internvl2-26b, 24 of 48 layers) and 24 (whisper-medium
-    whole): 2 rounds of batch 8 with seeded patches or frames, 32 new
-    tokens each; launches and shapes of flash counted, then the checks of
+    """Phases 23 (internvl2-26b, 12 of 48 layers) and 24 (whisper-medium,
+    12 + 12 of 24 + 24): 2 rounds of batch 8 with seeded patches or
+    frames, 32 new tokens each; launches and shapes of flash counted, then the checks of
     phase 20 (kernel against plain path in bf16 and float32, every launch
     against its plain version, decode against prefill).  Returns the
     launches of the 2 rounds."""
     cfg = big_cfg(name, VLM_SERVE_LAYERS if name == "internvl2-26b"
-                  else None)
+                  else WHISPER_SERVE_LAYERS)
     t0 = time.perf_counter()
     api = ModelAPI(cfg, device=CUDA)
     api.model.init(torch.Generator(device=CUDA).manual_seed(0))
@@ -3766,8 +4194,14 @@ def main() -> int:
         timed("phase 17", phase_checkpoint, root, train_state)
         del train_api, train_state
         torch.cuda.empty_cache()
-        timed("phase 28", phase_sharded, train_batches)
-        del train_batches
+        sharded = timed("phases 28-29a-b (ranks)", phase_sharded,
+                        train_batches)
+        mesh_serve = timed("phase 29 report and 29c-d",
+                           phase_serve_sharded, sharded["serve"])
+        print(f"[phase 29: {sharded['serve_s'] + mesh_serve['seconds']:.1f}"
+              f" s: {sharded['serve_s']:.1f} s in the ranks, "
+              f"{mesh_serve['seconds']:.1f} s here]")
+        del train_batches, sharded
         for n, name in zip((18, 19, 21, 25, 26), BIG_TRAIN):
             train_paths[f"train {name}"] = timed(f"phase {n}",
                                                  phase_train_big, name,
@@ -3789,6 +4223,7 @@ def main() -> int:
                                        (24, "whisper-medium"))}
     print(f"device: {smi_line()}")
     flash_paths = {"smollm-135m": launches["flash_attention"],
+                   "sharded serve": mesh_serve["launches"]["flash_attention"],
                    "recurrentgemma-9b": rgemma_launches["flash_attention"],
                    "qwen3-moe-30b-a3b": moe_launches["flash_attention"],
                    **{k: v["flash_attention"]
@@ -3811,14 +4246,18 @@ def main() -> int:
         whisper_encoder=dict(max_abs_err=family["whisper"][0],
                              serving=family["whisper"][1], shape=ENC_SHAPE,
                              causal=False))]
-    for name, line, launched in (
-            ("wkv6", "src/repro/kernels/wkv6.py:27", rwkv_launches),
+    for name, line, served, launched in (
+            ("wkv6", "src/repro/kernels/wkv6.py:27", "rwkv6-3b",
+             rwkv_launches),
             ("rglru_scan", "src/repro/kernels/rglru_scan.py:21",
-             rgemma_launches)):
+             "recurrentgemma-9b", rgemma_launches)):
+        paths = {served: launched[name],
+                 "sharded serve": mesh_serve["launches"][name]}
         kernels.append(dict(
             name=name, route="cuda",
             source=f"src/repro_torch/kernels/csrc/{name}.cu",
-            replaces=line, launches=launched[name],
+            replaces=line, launches=sum(paths.values()),
+            launches_by_path=paths,
             max_abs_err=rec_err[name], **rec_times[name],
             **insts.get(name, {})))
     for name, (src, line) in REL_SOURCES.items():

@@ -3,27 +3,15 @@ train / prefill / decode entry points and input shapes."""
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Tuple
 
 import torch
 
 from ..configs.base import ArchConfig, ShapeConfig
 from .encdec import EncDecLM
+from .layers import Spec
 from .lm import DecoderLM
-
-
-class Spec(tuple):
-    """An input's shape (the tuple itself) and its ``dtype``: the port's
-    stand-in for ``jax.ShapeDtypeStruct``."""
-
-    def __new__(cls, shape: Tuple[int, ...], dtype: torch.dtype):
-        self = super().__new__(cls, shape)
-        self.dtype = dtype
-        return self
-
-    @property
-    def shape(self) -> Tuple[int, ...]:
-        return tuple(self)
 
 
 class ModelAPI:
@@ -78,14 +66,36 @@ class ModelAPI:
                     else ("batch", None)
         return ax
 
-    def cache_axes(self):
-        """Logical axes of the JAX package's decode caches: an enc-dec's
-        is (self caches, the cross (k, v) stacked over the layers)."""
-        base = self.model.cache_axes()
+    def cache_specs(self, shape: ShapeConfig):
+        """``Spec``s of the decode caches at ``shape`` (its batch, and its
+        seq_len as the cache length), allocating nothing, as the JAX
+        ``cache_specs``: one dict per sub-block ("len" a 0-d int32); an
+        enc-dec's is (self caches, the cross (k, v) of every layer, at
+        seq_len encoder frames)."""
+        B, S = shape.global_batch, shape.seq_len
+        caches = self.model.cache_specs(B, S)
         if self.cfg.is_encdec:
-            cross = ((None, "batch", "kv_seq", "kv_heads", None),) * 2
-            return (base, cross)
-        return base
+            cfg = self.cfg
+            kv = Spec((B, S, cfg.n_kv_heads, cfg.hd), getattr(torch,
+                                                              cfg.dtype))
+            return caches, [(kv, kv) for _ in range(cfg.n_layers)]
+        return caches
+
+    def cache_axes(self, stacked: bool = True):
+        """Logical axes of the decode caches: the JAX package's, stacked
+        over the groups (an enc-dec's: (self caches, the cross (k, v)
+        stacked over the layers)), or with ``stacked=False`` in the
+        port's layout, the structure of ``cache_specs`` (the JAX axes
+        without their leading None).  Under the serve rules the length
+        ``kv_seq`` is sharded over "model" (``launch/dryrun.py``'s
+        ``_lower_decode``)."""
+        base = self.model.cache_axes(stacked)
+        kv = ("batch", "kv_seq", "kv_heads", None)
+        if not self.cfg.is_encdec:
+            return base
+        if stacked:
+            return (base, ((None,) + kv,) * 2)
+        return (base, [(kv, kv) for _ in range(self.cfg.n_layers)])
 
     def train_loss(self, batch):
         """(loss, metrics) of a train batch {tokens, labels[, loss_mask][,
@@ -99,3 +109,11 @@ class ModelAPI:
         """decode: one new token for every sequence in the batch."""
         return self.model.decode_step(batch["tokens"], caches,
                                       batch["positions"])
+
+
+@functools.lru_cache(maxsize=None)
+def build_model(cfg: ArchConfig, device="cuda") -> ModelAPI:
+    """The ``ModelAPI`` of ``cfg`` on ``device``, built once for each
+    (frozen config, device), as the JAX ``build_model`` is cached on its
+    config."""
+    return ModelAPI(cfg, device)

@@ -13,18 +13,34 @@ so the backward pass recomputes the block's scores instead of saving them
 (the port's counterpart of the JAX package's ``@jax.checkpoint``).  It is
 also the model's plain reference, with which ``chip_smoke.py`` recomputes
 a served prefill in place of the kernel.
+
+Under a mesh (the serve rules: heads over "model", the KV cache's length
+``kv_seq`` over "model") prefill runs the flash kernel on each rank's
+query heads and the KV heads they use (``_flash_per_shard``), each rank
+writes the cache positions it holds (``write_positions``), and decode is
+a split-K (flash decoding): each rank scores its own cache positions
+(``decode_partials``) and a log-sum-exp combine over the length shards
+(``combine_partials``) gives the output.  Without a mesh nothing of this
+runs and every path is the one above.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from torch.distributed.tensor import DTensor, Replicate, Shard
+
 from ..kernels import ops
-from ..sharding.partition import constrain, replicated_like
+from ..sharding.partition import (_contiguous_strides, constrain,
+                                  current_mesh, current_rules,
+                                  logical_to_spec, per_shard,
+                                  replicated_like, shard_range,
+                                  spec_to_placements)
 from .layers import apply_rope, dense_init_
 
 NEG_INF = -1e30
@@ -120,8 +136,12 @@ def decode_attention(q, k_cache, v_cache, cache_len):
 
     q: (B, 1, H, hd); caches: (B, T, KV, hd); cache_len: valid entries (an
     int, or a (B,) tensor).  The dots run in the cache dtype; only the
-    small score tensor is upcast for the softmax.
+    small score tensor is upcast for the softmax.  A cache that is a
+    DTensor (under a mesh) takes the split-K path, ``_decode_on_mesh``,
+    with an int ``cache_len``.
     """
+    if isinstance(k_cache, DTensor):
+        return _decode_on_mesh(q, k_cache, v_cache, cache_len)
     B, _, H, hd = q.shape
     T, KV = k_cache.shape[1], k_cache.shape[2]
     G = H // KV
@@ -139,17 +159,168 @@ def decode_attention(q, k_cache, v_cache, cache_len):
     return out.reshape(B, 1, H, hd).to(q.dtype)
 
 
+def decode_partials(q, k_part, v_part, cache_len, offset: int = 0):
+    """One part of a split-K decode: q (B, 1, H, hd) against the cache
+    positions offset .. offset + T' - 1, k_part and v_part (B, T', KV, hd).
+    A position is valid where it lies below ``cache_len`` (an int, or a
+    (B,) tensor).  Returns float32 (m, l, o): the row max of the scaled
+    scores (B, KV, G), the sum of exp(s - m) over the part (B, KV, G) and
+    the weighted sum of V (B, KV, G, hd), the probabilities in the cache
+    dtype as ``decode_attention`` takes them.
+
+    A part whose positions all lie at or past ``cache_len`` has every
+    score at ``NEG_INF`` (finite): its m is NEG_INF and its l its own
+    length, and ``combine_partials`` gives it the weight exp(NEG_INF - M),
+    exactly 0, beside any part with a valid position."""
+    B, _, H, hd = q.shape
+    T, KV = k_part.shape[1], k_part.shape[2]
+    G = H // KV
+    qg = q.reshape(B, KV, G, hd)
+    s = torch.einsum("bkgh,btkh->bkgt", qg.to(k_part.dtype), k_part)
+    s = s.float() * hd ** -0.5
+    pos = offset + torch.arange(T, device=q.device)
+    limit = cache_len if isinstance(cache_len, int) \
+        else cache_len.reshape(-1, 1)
+    valid = pos[None, :] < limit
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    o = torch.einsum("bkgt,btkh->bkgh", p.to(v_part.dtype), v_part)
+    return m, p.sum(dim=-1), o.float()
+
+
+def combine_partials(m, l, o):
+    """The log-sum-exp combine of a split-K decode's parts, stacked on a
+    leading dim (``decode_partials``' m, l (P, B, KV, G) and o (P, B, KV,
+    G, hd)): each part weighted by exp(m_p - M), M the max over the parts.
+    Returns the attention output (B, KV, G, hd) in float32; the parts are
+    summed in their order, so every rank that combines the same parts gets
+    the same bits."""
+    w = torch.exp(m - m.amax(dim=0))
+    return (w[..., None] * o).sum(dim=0) / (w * l).sum(dim=0)[..., None]
+
+
+def _decode_on_mesh(q, k_cache, v_cache, cache_len: int):
+    """Split-K decode over a length-sharded KV cache (DTensors): each rank
+    scores its own cache positions (its batch rows and KV heads, and q's
+    heads of those KV heads) with validity in global positions, the
+    parts (m, l, o) are gathered over the mesh dims that split the length,
+    and every rank combines them (``combine_partials``).  Returns (B, 1,
+    H, hd) placed as the cache's batch rows and KV heads, all of the
+    length dims replicated."""
+    mesh = k_cache.device_mesh
+    pl = tuple(k_cache.placements)
+    length = [i for i, p in enumerate(pl) if isinstance(p, Shard)
+              and p.dim == 1]
+    # q's heads split as the cache's KV heads: a block of KV heads holds
+    # the block of query heads it serves (head h uses KV head h // G)
+    qpl = [Replicate() if i in length else p for i, p in enumerate(pl)]
+    q = q.redistribute(mesh, qpl)
+    offset, _ = shard_range(k_cache, 1)
+    parts = decode_partials(q.to_local(), k_cache.to_local(),
+                            v_cache.to_local(), cache_len, offset)
+    if length:
+        # each part on a new leading dim, gathered over the length shards
+        ppl = [Shard(0) if i in length else
+               Shard(1) if isinstance(p, Shard) and p.dim == 0 else p
+               for i, p in enumerate(pl)]
+        gathered = [Replicate() if i in length else p
+                    for i, p in enumerate(ppl)]
+        n = math.prod(mesh.size(i) for i in length)
+        B, KV = k_cache.shape[0], k_cache.shape[2]
+        out = []
+        for t in parts:
+            shape = (n, B, KV) + tuple(t.shape[2:])
+            dt = DTensor.from_local(t[None], mesh, ppl, run_check=False,
+                                    shape=torch.Size(shape),
+                                    stride=_contiguous_strides(shape))
+            out.append(dt.redistribute(mesh, gathered).to_local())
+        parts = out
+    else:
+        parts = [t[None] for t in parts]
+    ql = q.to_local()
+    o = combine_partials(*parts).reshape(ql.shape).to(ql.dtype)
+    return DTensor.from_local(o, mesh, qpl, run_check=False,
+                              shape=q.shape,
+                              stride=_contiguous_strides(q.shape))
+
+
+def _kv_of_heads(k, v, h0: int, Hl: int, G: int, k0: int):
+    """The KV heads that query heads h0 .. h0 + Hl - 1 use (head h: KV
+    head h // G) out of k, v (B, T, KV', hd), which hold KV heads k0 ..
+    k0 + KV' - 1: a slice where the local heads group evenly, else one KV
+    head per query head."""
+    KVl = k.shape[2]
+    lo, hi = h0 // G - k0, (h0 + Hl - 1) // G - k0 + 1
+    if (h0 % G == 0 and Hl % G == 0) or (hi - lo == 1 and G % Hl == 0):
+        if (lo, hi) == (0, KVl):
+            return k, v
+        return k[:, :, lo:hi], v[:, :, lo:hi]
+    idx = (h0 + torch.arange(Hl, device=k.device)) // G - k0
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
+def _flash_per_shard(q, k, v, causal: bool, window: int):
+    """``ops.flash_attention`` (the kernel for CUDA tensors) on each rank's
+    query heads and the KV heads they use.  Where the KV heads do not
+    divide the "model" axis but the query heads do, k and v come
+    replicated and each rank takes the KV heads of its own block of query
+    heads.  Outside a mesh, the wrapper on the whole tensors."""
+    if current_mesh() is None or not isinstance(q, DTensor):
+        return ops.flash_attention(q, k, v, causal=causal, window=window)
+    q_ax, kv_ax = ("batch", None, "heads", None), ("batch", None,
+                                                    "kv_heads", None)
+    q = constrain(q, q_ax)
+    k, v = constrain(k, kv_ax), constrain(v, kv_ax)
+    (h0, Hl), (k0, _) = shard_range(q, 2), shard_range(k, 2)
+    G = q.shape[2] // k.shape[2]
+
+    def local(q, k, v):
+        k, v = _kv_of_heads(k, v, h0, Hl, G, k0)
+        return ops.flash_attention(q, k, v, causal=causal, window=window)
+    return per_shard(local, (q, k, v), (None,) * 3, [(q_ax, q.shape)])
+
+
+def write_part(part, src, start: int, offset: int = 0) -> None:
+    """The share of cache[:, start:start + n] = src (B, n, ...) that falls
+    in the positions offset .. offset + T' - 1 that ``part`` (B, T', ...)
+    holds, in place, in the part's dtype; nothing where none does."""
+    lo = max(start, offset)
+    hi = min(start + src.shape[1], offset + part.shape[1])
+    if lo < hi:
+        part[:, lo - offset:hi - offset] = \
+            src[:, lo - start:hi - start].to(part.dtype)
+
+
+def write_positions(cache_t, src, start: int) -> None:
+    """cache_t[:, start:start + n] = src (B, n, ...), in place, in the
+    cache's dtype.  Under a mesh (a DTensor cache) each rank writes the
+    share of the n positions that falls in the length range it holds
+    (``shard_range``, ``write_part``), from src placed as the cache
+    without its length split: a decode append (a plain slot, or the
+    hybrid's ring slot len % T) lands on the one rank that holds it."""
+    if not isinstance(cache_t, DTensor):
+        write_part(cache_t, src, start)
+        return
+    mesh = cache_t.device_mesh
+    spl = [Replicate() if isinstance(p, Shard) and p.dim == 1 else p
+           for p in cache_t.placements]
+    write_part(cache_t.to_local(), src.redistribute(mesh, spl).to_local(),
+               start, shard_range(cache_t, 1)[0])
+
+
 def _attend(q, k, v, cfg, causal: bool, window: int, mode: str):
     """Attention of a whole sequence.  Prefill: the flash wrapper, the
     hand-written kernel for CUDA tensors and its plain version for CPU
-    tensors.  Train: ``chunked_attention`` over ``cfg.attn_chunk`` keys,
+    tensors, on each rank's heads under a mesh.  Train:
+    ``chunked_attention`` over ``cfg.attn_chunk`` keys,
     as the JAX package's default ``attention_impl="xla"`` trains, each
     query block recomputed in the backward pass.  ``cfg.attention_impl``
     selects nothing here."""
     if mode == "train":
         return chunked_attention(q, k, v, causal=causal, window=window,
                                  chunk=cfg.attn_chunk)
-    return ops.flash_attention(q, k, v, causal=causal, window=window)
+    return _flash_per_shard(q, k, v, causal, window)
 
 
 def quant_kv(x):
@@ -164,6 +335,22 @@ def quant_kv(x):
 
 def dequant_kv(q, scale, dtype):
     return (q.float() * scale[..., None]).to(dtype)
+
+
+def _split_heads(t, n: int, axis: str):
+    """t (B, S, n * hd) viewed as (B, S, n, hd).  Under a mesh the last dim
+    is first placed as its n heads are under logical ``axis`` (whole heads
+    on each rank, or all of them where n does not divide the mesh axis):
+    DTensor (torch 2.11) may leave a product's output sharded across a
+    head, which no view can split."""
+    B, S, f = t.shape
+    if isinstance(t, DTensor):
+        mesh = t.device_mesh
+        pl = spec_to_placements(logical_to_spec(
+            ("batch", "seq", axis), mesh, current_rules(), (B, S, n)), mesh)
+        if tuple(t.placements) != pl:
+            t = t.redistribute(mesh, pl)
+    return t.view(B, S, n, f // n)
 
 
 def attn_apply(p, x, *, cfg, mode: str, cache: Optional[Dict] = None,
@@ -181,15 +368,17 @@ def attn_apply(p, x, *, cfg, mode: str, cache: Optional[Dict] = None,
     """
     B, S, d = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = (x @ p.wq.reshape(d, H * hd).to(x.dtype)).view(B, S, H, hd)
+    q = _split_heads(x @ p.wq.reshape(d, H * hd).to(x.dtype), H, "heads")
     if kv_override is not None:
         k, v = kv_override
         out = decode_attention(q, k, v, k.shape[1]) if mode == "decode" \
             else chunked_attention(q, k, v, causal=False,
                                    chunk=cfg.attn_chunk)
         return out.reshape(B, S, H * hd) @ p.wo.to(x.dtype), cache
-    k = (x @ p.wk.reshape(d, KV * hd).to(x.dtype)).view(B, S, KV, hd)
-    v = (x @ p.wv.reshape(d, KV * hd).to(x.dtype)).view(B, S, KV, hd)
+    k = _split_heads(x @ p.wk.reshape(d, KV * hd).to(x.dtype), KV,
+                     "kv_heads")
+    v = _split_heads(x @ p.wv.reshape(d, KV * hd).to(x.dtype), KV,
+                     "kv_heads")
     if pos is None:
         pos = replicated_like(torch.arange(S, device=x.device)[None, :], x)
     if cfg.rope_theta > 0:
@@ -203,33 +392,33 @@ def attn_apply(p, x, *, cfg, mode: str, cache: Optional[Dict] = None,
         out = _attend(q, k, v, cfg, causal, window, mode)
         T = cache["k"].shape[1]
         kk, vv = (k[:, S - T:], v[:, S - T:]) if T < S else (k, v)
-        n = kk.shape[1]
         if "k_scale" in cache:
             kk, ks = quant_kv(kk)
             vv, vs = quant_kv(vv)
-            cache["k_scale"][:, :n] = ks
-            cache["v_scale"][:, :n] = vs
-        cache["k"][:, :n] = kk.to(cache["k"].dtype)
-        cache["v"][:, :n] = vv.to(cache["v"].dtype)
+            write_positions(cache["k_scale"], ks, 0)
+            write_positions(cache["v_scale"], vs, 0)
+        write_positions(cache["k"], kk, 0)
+        write_positions(cache["v"], vv, 0)
         cache["len"] = min(S, T)
     elif mode == "decode":
         T = cache["k"].shape[1]
-        # ring-buffer slot for windowed caches, plain append otherwise
+        # ring-buffer slot for windowed caches, plain append otherwise;
+        # under a mesh only the rank that holds the slot writes it
         slot = cache["len"] % T if window else min(cache["len"], T - 1)
         cache_len = min(cache["len"] + 1, T)
         if "k_scale" in cache:
             kq, ks = quant_kv(k)
             vq, vs = quant_kv(v)
-            cache["k"][:, slot:slot + 1] = kq
-            cache["v"][:, slot:slot + 1] = vq
-            cache["k_scale"][:, slot:slot + 1] = ks
-            cache["v_scale"][:, slot:slot + 1] = vs
+            write_positions(cache["k"], kq, slot)
+            write_positions(cache["v"], vq, slot)
+            write_positions(cache["k_scale"], ks, slot)
+            write_positions(cache["v_scale"], vs, slot)
             out = decode_attention(
                 q, dequant_kv(cache["k"], cache["k_scale"], x.dtype),
                 dequant_kv(cache["v"], cache["v_scale"], x.dtype), cache_len)
         else:
-            cache["k"][:, slot:slot + 1] = k.to(cache["k"].dtype)
-            cache["v"][:, slot:slot + 1] = v.to(cache["v"].dtype)
+            write_positions(cache["k"], k, slot)
+            write_positions(cache["v"], v, slot)
             out = decode_attention(q, cache["k"], cache["v"], cache_len)
         cache["len"] += 1
     else:

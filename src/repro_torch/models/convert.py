@@ -30,6 +30,7 @@ from typing import Any, Dict, List, Mapping, Tuple
 import numpy as np
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from ..configs.base import ArchConfig
 from ..sharding.partition import distribute, unshard
@@ -263,6 +264,33 @@ def set_param(model: nn.Module, name: str, t: torch.Tensor) -> None:
     setattr(mod, attr, nn.Parameter(t, requires_grad=True))
 
 
+def place_params(model: nn.Module, shardings: Mapping[str, Any],
+                 specs: Mapping[str, Any] = None) -> nn.Module:
+    """Every parameter of ``model`` (the same full tensor on every rank)
+    as a DTensor parameter placed by its JAX leaf's ``NamedSharding`` in
+    ``shardings`` (keyed as the JAX params pytree, computed on its
+    stacked shapes), without the leading layer entry (always None: layers
+    are never sharded).  With ``specs`` (the same keys, ``Spec``s or
+    anything with a ``dtype``) each is cast to its leaf's dtype first, as
+    serving takes bf16 copies of the weights.  Returns ``model``."""
+    names = {p: n for n, p in model.named_parameters()}
+    p_sh = flatten_paths(shardings)
+    dtypes = flatten_paths(specs) if specs is not None else {}
+    for leaf in jax_leaves(model):
+        sh = p_sh[leaf.path]
+        if leaf.stacked:
+            assert not sh.spec or sh.spec[0] is None, (leaf.path, sh.spec)
+            sh = type(sh)(sh.mesh, sh.spec[1:])
+        dt = getattr(dtypes.get(leaf.path), "dtype", None)
+        for p in leaf.params:
+            t = p.detach() if dt is None else p.detach().to(dt)
+            # a weight already on a mesh (placed before) moves to its spec
+            t = t.redistribute(sh.mesh, sh.placements) \
+                if isinstance(t, DTensor) else distribute(t, sh)
+            set_param(model, names[p], t)
+    return model
+
+
 def place_train_state(state: Mapping[str, Any],
                       shardings: Mapping[str, Any]) -> Dict[str, Any]:
     """A port train state (the same full tensors on every rank) placed
@@ -274,15 +302,7 @@ def place_train_state(state: Mapping[str, Any],
     residual are placed leaf by leaf; 0-d leaves (step, count) stay
     plain.  Returns the state, with the same model."""
     model = state["params"]
-    names = {p: n for n, p in model.named_parameters()}
-    p_sh = flatten_paths(shardings["params"])
-    for leaf in jax_leaves(model):
-        sh = p_sh[leaf.path]
-        if leaf.stacked:
-            assert not sh.spec or sh.spec[0] is None, (leaf.path, sh.spec)
-            sh = type(sh)(sh.mesh, sh.spec[1:])
-        for p in leaf.params:
-            set_param(model, names[p], distribute(p, sh))
+    place_params(model, shardings["params"])
     out = {"params": model, "step": state["step"]}
     for key in ("opt", "residual"):
         if key not in state:

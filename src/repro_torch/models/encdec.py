@@ -29,10 +29,10 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
 from ..configs.base import ArchConfig
-from ..sharding.partition import constrain, replicated_like
+from ..sharding.partition import constrain, replicated_like, serving
 from .attention import Attention, attn_axes
-from .layers import MLP, RMSNorm, mlp_axes, normal_, rms_norm, \
-    softmax_xent, stacked_axes, tied_table, trunc_normal_
+from .layers import MLP, RMSNorm, Spec, mlp_axes, normal_, rms_norm, \
+    softmax_xent, stacked_axes, tied_table, trunc_normal_, zero_caches
 
 N_DEC_POS = 4096          # learned decoder positions, taken modulo this
 
@@ -148,12 +148,22 @@ class EncDecLM(nn.Module):
             "embed": ("vocab", "fsdp"), "dec_pos": (None, "fsdp"),
             "enc_norm": (None,), "final_norm": (None,)}
 
-    def cache_axes(self) -> Dict:
-        """Logical axes of the JAX package's self-attention caches,
-        stacked over the decoder layers."""
-        return {"k": (None, "batch", "kv_seq", "kv_heads", None),
-                "v": (None, "batch", "kv_seq", "kv_heads", None),
-                "len": (None,)}
+    def cache_axes(self, stacked: bool = True):
+        """Logical axes of the self-attention caches: the JAX package's,
+        stacked over the decoder layers, or with ``stacked=False`` one
+        dict per layer, as ``init_cache`` holds them."""
+        one = {"k": ("batch", "kv_seq", "kv_heads", None),
+               "v": ("batch", "kv_seq", "kv_heads", None), "len": ()}
+        if stacked:
+            return {k: (None,) + v for k, v in one.items()}
+        return [dict(one) for _ in range(self.cfg.n_layers)]
+
+    def cache_specs(self, B: int, cache_len: int) -> List[Dict]:
+        """``Spec``s of ``init_cache(B, cache_len)``, allocating nothing."""
+        kv = Spec((B, cache_len, self.cfg.n_kv_heads, self.cfg.hd),
+                  self.cdtype)
+        return [{"k": kv, "v": kv, "len": Spec((), torch.int32)}
+                for _ in range(self.cfg.n_layers)]
 
     def _remat(self, mode: str) -> bool:
         return self.cfg.remat and mode == "train" and torch.is_grad_enabled()
@@ -244,15 +254,13 @@ class EncDecLM(nn.Module):
         return self.loss_fn(batch)
 
     def init_cache(self, B: int, cache_len: int) -> List[Dict]:
-        """Zero self-attention caches, one {"k", "v", "len"} per decoder
-        layer, updated in place by prefill and decode."""
-        cfg = self.cfg
-        shape = (B, cache_len, cfg.n_kv_heads, cfg.hd)
-        kw = dict(dtype=self.cdtype, device=self.device)
-        return [{"k": torch.zeros(shape, **kw), "v": torch.zeros(shape, **kw),
-                 "len": 0} for _ in range(cfg.n_layers)]
+        """Zero self-attention caches of ``cache_specs``, one {"k", "v",
+        "len"} per decoder layer, updated in place by prefill and decode
+        (placed as ``DecoderLM.init_cache`` places them under a mesh)."""
+        return zero_caches(self.cache_specs(B, cache_len),
+                           self.cache_axes(stacked=False), self.device)
 
-    @torch.inference_mode()
+    @serving
     def prefill(self, batch, cache_len: int):
         """Encode {frames (B,S,d)} and run the decoder prompt {tokens (B,
         S')} (a BOS): returns (last_logits (B,1,V), (caches, cross))."""
@@ -264,7 +272,7 @@ class EncDecLM(nn.Module):
         logits, caches = self._decoder(tokens, "prefill", cross, caches)
         return logits[:, -1:], (caches, cross)
 
-    @torch.inference_mode()
+    @serving
     def decode_step(self, tokens, caches, positions):
         """One token for every sequence.  tokens, positions (B, 1); caches
         the (self-attention caches, cross) pair of ``prefill``."""

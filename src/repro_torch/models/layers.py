@@ -19,7 +19,49 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..sharding.partition import constrain, replicated_like
+from ..sharding.partition import (NamedSharding, constrain, current_mesh,
+                                  current_rules, logical_to_spec,
+                                  replicated_like, zeros_placed)
+
+
+class Spec(tuple):
+    """A tensor's shape (the tuple itself) and its ``dtype``, without
+    storage: the port's stand-in for ``jax.ShapeDtypeStruct`` (inputs,
+    train states, decode caches)."""
+
+    def __new__(cls, shape: Tuple[int, ...], dtype: torch.dtype):
+        self = super().__new__(cls, shape)
+        self.dtype = dtype
+        return self
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return tuple(self)
+
+
+def zero_caches(specs, axes, device):
+    """Zero decode caches of a tree of ``Spec``s (lists and tuples of
+    dicts: the port's cache layout), where a 0-d spec (an attention
+    cache's "len") is the int 0.  Under an active ``DeviceMesh`` each
+    tensor is a DTensor placed by its logical axes in ``axes`` (the same
+    structure) and made in its shards, never whole on a rank first."""
+    mesh = current_mesh()
+    placed = mesh is not None and hasattr(mesh, "get_coordinate")
+    rules = current_rules()
+
+    def one(spec, ax):
+        if isinstance(spec, dict):
+            return {k: one(spec[k], ax[k]) for k in spec}
+        if not isinstance(spec, Spec):
+            return type(spec)(one(s, a) for s, a in zip(spec, ax))
+        if not spec.shape:
+            return 0
+        if not placed:
+            return torch.zeros(spec.shape, dtype=spec.dtype, device=device)
+        sh = NamedSharding(mesh, logical_to_spec(ax, mesh, rules,
+                                                 spec.shape))
+        return zeros_placed(spec.shape, sh, dtype=spec.dtype, device=device)
+    return one(specs, axes)
 
 
 def draw_(w: torch.Tensor, generator: torch.Generator, fill) -> torch.Tensor:

@@ -35,10 +35,12 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
 from ..configs.base import ArchConfig
-from ..sharding.partition import constrain, replicated_like
+from ..sharding.partition import (constrain, reduce_partial,
+                                  replicated_like, serving)
 from .attention import Attention, attn_axes
-from .layers import (MLP, RMSNorm, dense_init_, mlp_axes, rms_norm,
-                     softmax_xent, stacked_axes, tied_table, trunc_normal_)
+from .layers import (MLP, RMSNorm, Spec, dense_init_, mlp_axes, rms_norm,
+                     softmax_xent, stacked_axes, tied_table, trunc_normal_,
+                     zero_caches)
 from .moe import AUX_KEYS, MoE, moe_axes
 from .rglru import RGLRU, rglru_axes
 from .rwkv6 import RWKVBlock, rwkv_channel_axes, rwkv_time_axes
@@ -77,23 +79,58 @@ def sub_block_axes(kind: str, cfg: ArchConfig) -> Dict:
     return {"ln1": (None,), "mix": mix, "ln2": (None,), "ffn": ffn}
 
 
-def sub_block_cache_axes(kind: str, cfg: ArchConfig) -> Dict:
-    """Logical axes of the JAX package's cache of one sub-block kind,
-    stacked over the groups (leading None)."""
+def sub_block_cache_axes(kind: str, cfg: ArchConfig,
+                         stacked: bool = True) -> Dict:
+    """Logical axes of the cache of one sub-block kind: stacked over the
+    groups (a leading None) as the JAX package stacks its caches, or with
+    ``stacked=False`` those of one sub-block's cache as the port holds it
+    (the JAX axes without the leading None; "len" is a 0-d)."""
     if kind in ("attn", "moe"):
-        out = {"k": (None, "batch", "kv_seq", "kv_heads", None),
-               "v": (None, "batch", "kv_seq", "kv_heads", None),
-               "len": (None,)}
+        out = {"k": ("batch", "kv_seq", "kv_heads", None),
+               "v": ("batch", "kv_seq", "kv_heads", None), "len": ()}
         if cfg.kv_cache_dtype == "int8":
-            out["k_scale"] = (None, "batch", "kv_seq", "kv_heads")
-            out["v_scale"] = (None, "batch", "kv_seq", "kv_heads")
+            out["k_scale"] = ("batch", "kv_seq", "kv_heads")
+            out["v_scale"] = ("batch", "kv_seq", "kv_heads")
+    elif kind == "rec":
+        out = {"h": ("batch", "lru"), "conv": ("batch", None, "lru")}
+    else:
+        out = {"time": {"shift": ("batch", "tensor"),
+                        "state": ("batch", "tensor", None, None)},
+               "channel": {"shift": ("batch", "tensor")}}
+    return _stack_axes(out) if stacked else out
+
+
+def _stack_axes(tree: Dict) -> Dict:
+    return {k: _stack_axes(v) if isinstance(v, dict) else (None,) + v
+            for k, v in tree.items()}
+
+
+def sub_block_cache_specs(kind: str, cfg: ArchConfig, B: int,
+                          cache_len: int, dtype) -> Dict:
+    """``Spec``s of one sub-block's zero cache (the JAX
+    ``sub_block_cache``): attention and moe {"k", "v", "len"[, "k_scale",
+    "v_scale"]} (a ring of min(cache_len, local_window) for the hybrid;
+    int8 codes and float32 scales for the int8 cache), RG-LRU {"h",
+    "conv"}, RWKV {"time": {"shift", "state"}, "channel": {"shift"}}."""
+    f32 = torch.float32
+    d, w = cfg.d_model, cfg.lru_width or cfg.d_model
+    if kind in ("attn", "moe"):
+        T = min(cache_len, cfg.local_window) \
+            if cfg.family == "hybrid" and cfg.local_window else cache_len
+        shape = (B, T, cfg.n_kv_heads, cfg.hd)
+        quant = cfg.kv_cache_dtype == "int8"
+        kv = Spec(shape, torch.int8 if quant else dtype)
+        out = {"k": kv, "v": kv, "len": Spec((), torch.int32)}
+        if quant:
+            out["k_scale"] = out["v_scale"] = Spec(shape[:3], f32)
         return out
     if kind == "rec":
-        return {"h": (None, "batch", "lru"),
-                "conv": (None, "batch", None, "lru")}
-    return {"time": {"shift": (None, "batch", "tensor"),
-                     "state": (None, "batch", "tensor", None, None)},
-            "channel": {"shift": (None, "batch", "tensor")}}
+        return {"h": Spec((B, w), f32),
+                "conv": Spec((B, cfg.conv_width - 1, w), dtype)}
+    N = cfg.rwkv_head_dim
+    return {"time": {"shift": Spec((B, d), dtype),
+                     "state": Spec((B, d // N, N, N), f32)},
+            "channel": {"shift": Spec((B, d), dtype)}}
 
 
 class Block(nn.Module):
@@ -201,10 +238,21 @@ class DecoderLM(nn.Module):
             axes["vision_proj"] = ("fsdp", "tensor")
         return axes
 
-    def cache_axes(self) -> Dict:
-        """Logical axes of the JAX package's stacked caches."""
-        return {f"b{i}": sub_block_cache_axes(kind, self.cfg)
-                for i, kind in enumerate(self.kinds)}
+    def cache_axes(self, stacked: bool = True):
+        """Logical axes of the decode caches: the JAX package's, stacked
+        over the groups ({"b{i}": ...}), or with ``stacked=False`` one
+        dict per sub-block, as ``init_cache`` holds them."""
+        if stacked:
+            return {f"b{i}": sub_block_cache_axes(kind, self.cfg)
+                    for i, kind in enumerate(self.kinds)}
+        return [sub_block_cache_axes(kind, self.cfg, stacked=False)
+                for _ in range(self.groups) for kind in self.kinds]
+
+    def cache_specs(self, B: int, cache_len: int) -> List[Dict]:
+        """``Spec``s of ``init_cache(B, cache_len)``, allocating nothing."""
+        return [sub_block_cache_specs(kind, self.cfg, B, cache_len,
+                                      self.cdtype)
+                for _ in range(self.groups) for kind in self.kinds]
 
     # -- embedding / head -------------------------------------------------
     def embed_inputs(self, tokens, patches=None):
@@ -216,7 +264,11 @@ class DecoderLM(nn.Module):
         # gather them (torch 2.13)
         ids = constrain(tokens, (None,) * tokens.dim())
         x = F.embedding(ids, tied_table(self.embed)).to(self.cdtype)
-        x = constrain(x, ("batch", "seq", None))
+        # the lookup's masked partial sum over "vocab" is reduced in place
+        # first: with a table replicated over "data" (SERVE_RULES) DTensor
+        # shards the batch before it reduces, and the mask of the whole
+        # batch no longer fits (torch 2.13); the sums are exact either way
+        x = constrain(reduce_partial(x), ("batch", "seq", None))
         if self.vision_proj is not None and patches is not None:
             pv = patches.to(self.cdtype) @ self.vision_proj.to(self.cdtype)
             x = torch.cat([pv, x], dim=1)
@@ -309,49 +361,14 @@ class DecoderLM(nn.Module):
         return self.loss_fn(batch)
 
     def init_cache(self, B: int, cache_len: int) -> List[Dict]:
-        """Zero caches, one dict per sub-block, updated in place by prefill
-        and decode: attention and moe {"k", "v", "len"[, "k_scale",
-        "v_scale"]}
-        (a ring of min(cache_len, local_window) for the hybrid), RG-LRU
-        {"h", "conv"}, RWKV {"time": {"shift", "state"}, "channel":
-        {"shift"}}."""
-        cfg = self.cfg
-        kw = dict(dtype=self.cdtype, device=self.device)
-        f32 = dict(dtype=torch.float32, device=self.device)
-        d, w = cfg.d_model, cfg.lru_width or cfg.d_model
-        caches = []
-        for _ in range(self.groups):
-            for kind in self.kinds:
-                if kind == "rec":
-                    caches.append({
-                        "h": torch.zeros(B, w, **f32),
-                        "conv": torch.zeros(B, cfg.conv_width - 1, w, **kw)})
-                elif kind == "rwkv":
-                    N = cfg.rwkv_head_dim
-                    caches.append({
-                        "time": {"shift": torch.zeros(B, d, **kw),
-                                 "state": torch.zeros(B, d // N, N, N, **f32)},
-                        "channel": {"shift": torch.zeros(B, d, **kw)}})
-                else:
-                    caches.append(self._attn_cache(B, cache_len))
-        return caches
+        """Zero caches of ``cache_specs``, one dict per sub-block, updated
+        in place by prefill and decode ("len" an int).  Under an active
+        mesh each is placed by ``cache_axes(stacked=False)`` and made in
+        its shards."""
+        return zero_caches(self.cache_specs(B, cache_len),
+                           self.cache_axes(stacked=False), self.device)
 
-    def _attn_cache(self, B: int, cache_len: int) -> Dict:
-        cfg = self.cfg
-        T = min(cache_len, cfg.local_window) \
-            if cfg.family == "hybrid" and cfg.local_window else cache_len
-        shape = (B, T, cfg.n_kv_heads, cfg.hd)
-        quant = cfg.kv_cache_dtype == "int8"
-        kw = dict(dtype=torch.int8 if quant else self.cdtype,
-                  device=self.device)
-        c = {"k": torch.zeros(shape, **kw), "v": torch.zeros(shape, **kw),
-             "len": 0}
-        if quant:
-            c["k_scale"] = torch.zeros(shape[:3], device=self.device)
-            c["v_scale"] = torch.zeros(shape[:3], device=self.device)
-        return c
-
-    @torch.inference_mode()
+    @serving
     def prefill(self, batch, cache_len: int):
         """Process the prompt {tokens (B,S)[, patches (B,V,d)]}: patches
         and text fill the caches' first V + S places.  Returns
@@ -359,12 +376,13 @@ class DecoderLM(nn.Module):
         tokens = batch["tokens"]
         B = tokens.shape[0]
         x = self.embed_inputs(tokens, batch.get("patches"))
-        pos = torch.arange(x.shape[1], device=x.device)[None, :]
+        pos = replicated_like(
+            torch.arange(x.shape[1], device=x.device)[None, :], x)
         caches = self.init_cache(B, cache_len)
         x, caches = self.backbone(x, "prefill", caches, pos)
         return self.head(x[:, -1:]), caches
 
-    @torch.inference_mode()
+    @serving
     def decode_step(self, tokens, caches, positions):
         """One token for every sequence.  tokens (B, 1); positions (B, 1)."""
         x = self.embed_inputs(tokens)

@@ -15,8 +15,10 @@ tensors, its plain version for CPU tensors) with the carried h as its h0;
 the JAX model folds h0 into b_0 and takes an associative scan, which
 agrees to rounding.  Train mode runs ``rglru_scan``: h0 folded into b_0 as
 the JAX model does, then a log-depth doubling scan in plain PyTorch under
-autograd (the kernel has no backward).  Decode is one plain step.  Caches
-are updated in place.
+autograd (the kernel has no backward).  Decode is one plain step.  Under
+a mesh prefill's kernel and decode's step run on each rank's batch rows
+and lanes (``partition.per_shard``), and the caches h and conv stay
+sharded over them.  Caches are updated in place.
 """
 
 from __future__ import annotations
@@ -29,11 +31,14 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels import ops
-from ..sharding.partition import constrain
+from ..sharding.partition import constrain, per_shard
 from .layers import dense_init_, normal_, uniform_
 
 C_FACTOR = 8.0
 N_GATE_HEADS = 16
+# the layouts of the recurrence under a mesh, (B, S, w) and the state h:
+# each rank holds the whole sequence, which a scan cannot split
+SEQ_AX, H_AX = ("batch", None, "lru"), ("batch", "lru")
 
 
 def gates(p, x):
@@ -78,10 +83,15 @@ def rglru_scan(a, b, h0: Optional[torch.Tensor] = None):
 
 def rglru_step(p, x, h):
     """One decode step.  x: (B, 1, w); h: (B, w) float32.  Returns
-    (y (B, 1, w) in x's dtype, new h float32)."""
+    (y (B, 1, w) in x's dtype, new h float32); under a mesh the update
+    runs on each rank's batch rows and lanes."""
     a, b = coeffs(p, x)
-    h_new = a[:, 0] * h.float() + b[:, 0]
-    return h_new[:, None].to(x.dtype), h_new
+
+    def step(a, b, h):
+        h_new = a[:, 0] * h.float() + b[:, 0]
+        return h_new[:, None].to(x.dtype), h_new
+    return per_shard(step, (a, b, h), (SEQ_AX, SEQ_AX, H_AX),
+                     [(SEQ_AX, x.shape), (H_AX, h.shape)])
 
 
 def conv1d_apply(conv_w, x, state: Optional[torch.Tensor] = None):
@@ -121,7 +131,9 @@ def rglru_block_apply(p, x, cfg, mode: str, cache: Optional[Dict] = None):
         y = h.to(rec.dtype)
     else:
         a, b = coeffs(p, rec)
-        h, h_last = ops.rglru_scan(a, b, cache["h"] if cache else None)
+        h, h_last = per_shard(
+            ops.rglru_scan, (a, b, cache["h"] if cache else None),
+            (SEQ_AX, SEQ_AX, H_AX), [(SEQ_AX, a.shape), (H_AX, a.shape[::2])])
         y = h.to(rec.dtype)
     out = (y * gate) @ p.wo.to(x.dtype)
     if cache is not None:

@@ -13,9 +13,11 @@ for CUDA tensors, its plain version for CPU tensors) at any sequence
 length: the JAX model's chunked form needs S to be a multiple of its chunk
 (``wkv6_chunked`` asserts it), the function itself does not.  Train mode
 runs ``wkv6_chunked``, the JAX model's chunked form in plain PyTorch under
-autograd (the kernel has no backward), at any length; under a mesh each
-rank runs it on its own batch rows and heads (``partition.per_shard``).
-Decode is one plain step.  Caches are updated in place.
+autograd (the kernel has no backward), at any length.  Decode is one
+plain step.  Under a mesh each rank runs the recurrence of every mode
+(the kernel in prefill) on its own batch rows and heads
+(``partition.per_shard``), and the state and shift caches stay sharded
+over them.  Caches are updated in place.
 """
 
 from __future__ import annotations
@@ -128,17 +130,21 @@ def rwkv_time_apply(p, x, cfg, mode: str, cache: Optional[Dict] = None):
     w = torch.exp(-torch.exp(torch.clamp(p.w0 + dw.float(), -20.0,
                                          1.3862))).view(B, S, H, N)
     state = cache["state"] if cache else None
-    if mode == "decode":
-        out, new_state = wkv6_step(r, k, v, w, p.u, state)
-    elif mode == "train":
-        # under a mesh, per batch row and head on each rank's shards
-        ax = ("batch", None, "tensor", None)
+    # under a mesh every mode runs the recurrence per batch row and head
+    # on each rank's shards; the state cache is placed so already
+    ax, st_ax = ("batch", None, "tensor", None), ("batch", "tensor", None,
+                                                  None)
+    outs = [(ax, r.shape), (st_ax, (B, H, N, N))]
+    if mode == "train":
         out, new_state = per_shard(
             lambda *a: wkv6_chunked(*a, state), (r, k, v, w, p.u),
-            (ax,) * 4 + (("tensor", None),),
-            [(ax, r.shape), (("batch", "tensor", None, None), (B, H, N, N))])
+            (ax,) * 4 + (("tensor", None),), outs)
     else:
-        out, new_state = ops.wkv6(r, k, v, w, p.u, state)
+        # the kernel takes a float32 u (bf16 under the serve weights)
+        out, new_state = per_shard(
+            wkv6_step if mode == "decode" else ops.wkv6,
+            (r, k, v, w, p.u if mode == "decode" else p.u.float(), state),
+            (ax,) * 4 + (("tensor", None), st_ax), outs)
     # simplified group norm over each head
     oh = out.float()
     oh = oh * torch.rsqrt(oh.square().mean(dim=-1, keepdim=True) + 1e-5)

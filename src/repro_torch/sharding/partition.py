@@ -34,6 +34,7 @@ production meshes' specs are computed without 256 ranks.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Any, Dict, List, Mapping, Optional, Tuple
 
@@ -282,6 +283,20 @@ def current_rules() -> ShardingRules:
     return _CURRENT["rules"]
 
 
+def serving(fn):
+    """Decorate a serving entry point: it runs under
+    ``torch.inference_mode()``, or under ``torch.no_grad()`` while a mesh
+    is active, because DTensor's view ops fail on inference tensors
+    ("Cannot set version_counter for inference tensor", torch 2.13).
+    Either way no graph is recorded; outside a mesh nothing changes."""
+    @functools.wraps(fn)
+    def wrapped(*args, **kw):
+        with torch.no_grad() if _CURRENT["mesh"] is not None \
+                else torch.inference_mode():
+            return fn(*args, **kw)
+    return wrapped
+
+
 class _GradTo(torch.autograd.Function):
     """Identity forward; the backward puts the grad on ``placements``."""
 
@@ -381,6 +396,45 @@ def per_shard(fn, args, in_axes, out_specs,
     return wrapped[0] if single else tuple(wrapped)
 
 
+def shard_range(t: torch.Tensor, dim: int) -> Tuple[int, int]:
+    """(global offset, length) of this rank's shard of ``t`` along ``dim``:
+    (0, the whole length) for a plain tensor or a dim no mesh dim splits.
+    Where several mesh dims split ``dim`` the first is the major one, as
+    DTensor nests them.  A function run by ``per_shard`` on a shard of a
+    length-sharded KV cache takes this offset to mask and write in global
+    positions."""
+    n = t.shape[dim]
+    if not isinstance(t, DTensor):
+        return 0, n
+    dim %= t.dim()
+    mesh = t.device_mesh
+    coord = mesh.get_coordinate()
+    idx, parts = 0, 1
+    for i, p in enumerate(t.placements):
+        if isinstance(p, Shard) and p.dim % t.dim() == dim:
+            idx = idx * mesh.size(i) + coord[i]
+            parts *= mesh.size(i)
+    if n % parts:
+        raise ValueError(f"shard_range: dim {dim} of {tuple(t.shape)} is "
+                         f"split {parts} ways unevenly")
+    return idx * (n // parts), n // parts
+
+
+def zeros_placed(shape, sharding: NamedSharding, **kw) -> DTensor:
+    """A zero DTensor of global ``shape`` placed by ``sharding``, made in
+    its shards: each rank allocates its own shard alone (``kw``: dtype,
+    device)."""
+    mesh, placements = sharding.mesh, sharding.placements
+    local = list(shape)
+    for i, p in enumerate(placements):
+        if isinstance(p, Shard):
+            local[p.dim] //= mesh.size(i)
+    return DTensor.from_local(torch.zeros(local, **kw), mesh,
+                              list(placements), run_check=False,
+                              shape=torch.Size(shape),
+                              stride=_contiguous_strides(shape))
+
+
 def _contiguous_strides(shape) -> Tuple[int, ...]:
     out, n = [], 1
     for s in reversed(tuple(shape)):
@@ -400,6 +454,16 @@ def unshard(t: torch.Tensor) -> torch.Tensor:
     """``t`` whole: a DTensor gathered (``full_tensor()``, a collective
     over its mesh), a plain tensor as it is."""
     return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def reduce_partial(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's partial sums reduced (each ``Partial`` mesh dim made
+    ``Replicate``), its shards kept; a plain tensor as it is."""
+    if not isinstance(t, DTensor) or not any(p.is_partial()
+                                             for p in t.placements):
+        return t
+    return t.redistribute(t.device_mesh, [Replicate() if p.is_partial()
+                                          else p for p in t.placements])
 
 
 def replicated_like(t: torch.Tensor, ref):

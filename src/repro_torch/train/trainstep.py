@@ -114,9 +114,10 @@ def make_train_step(api, *, peak_lr: float = 3e-4, warmup: int = 100,
     either plain tensors, the whole global batch on every rank, or
     DTensors; either way each microbatch is placed by ``input_axes``.
     ``grad_compression`` with a "pod" axis: see the module's docstring.
-    ``capture`` (a dict), on a compressed step, receives each leaf's
-    grads and residual before the compression and its int8 codes and
-    scale ({"grads", "residual", "codes"}, keyed by leaf path).
+    ``capture`` (a dict) receives each leaf's float32 grads (stacked as
+    the JAX leaf), and on a compressed step also its residual, both
+    before the compression, and its int8 codes and scale ({"grads",
+    "residual", "codes"}, keyed by leaf path).
     """
     opt = make_optimizer(api.cfg.optimizer)
     model = api.model
@@ -226,9 +227,10 @@ def make_train_step(api, *, peak_lr: float = 3e-4, warmup: int = 100,
         with torch.no_grad(), replicate:
             for leaf in leaves:
                 g = leaf.stack([by_param.pop(p) for p in leaf.params])
+                if capture is not None:
+                    capture["grads"][leaf.path] = g.clone()
                 if do_compress and residual is not None:
                     if capture is not None:
-                        capture["grads"][leaf.path] = g.clone()
                         capture["residual"][leaf.path] = \
                             residual[leaf.path].clone()
                     synced, new_r = compress_grads_allreduce(

@@ -179,6 +179,29 @@ for run in spec["runs"]:
 """
 
 
+def _jax_subprocess(script: str, path: str, n_devices: int):
+    """``script`` run with ``path`` in a subprocess of ``n_devices`` host
+    devices (the count is process-wide), the port and these helpers on
+    its path."""
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               XLA_FLAGS=f"--xla_force_host_platform_device_count={n_devices}",
+               PYTHONPATH=os.pathsep.join(
+                   [os.path.join(ROOT, "src"), os.path.dirname(__file__)]))
+    return subprocess.Popen([sys.executable, "-c", script, path], env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def _wait(proc, timeout: float):
+    try:
+        _, err = proc.communicate(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    assert proc.returncode == 0, err[-3000:]
+
+
 class JaxMeshRuns:
     """The JAX step under a mesh, in a subprocess with that many host
     devices (the device count is process-wide): each run {"name",
@@ -201,23 +224,10 @@ class JaxMeshRuns:
                                       if k != "batches"},
                                      steps=len(r["batches"]))
                                 for r in runs]}, f)
-        n = int(np.prod(shape))
-        env = dict(os.environ, JAX_PLATFORMS="cpu",
-                   XLA_FLAGS=f"--xla_force_host_platform_device_count={n}",
-                   PYTHONPATH=os.pathsep.join(
-                       [os.path.join(ROOT, "src"), os.path.dirname(__file__)]))
-        self.proc = subprocess.Popen(
-            [sys.executable, "-c", JAX_MESH, path], env=env,
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        self.proc = _jax_subprocess(JAX_MESH, path, int(np.prod(shape)))
 
     def results(self, timeout: float = 300.0):
-        try:
-            _, err = self.proc.communicate(timeout=timeout)
-        finally:
-            if self.proc.poll() is None:
-                self.proc.kill()
-                self.proc.communicate()
-        assert self.proc.returncode == 0, err[-3000:]
+        _wait(self.proc, timeout)
         out = {}
         for name in self.names:
             base = f"{self.path}.{name}"
@@ -242,3 +252,120 @@ def worst(got, want, prefix: str = ""):
             if np.asarray(w[p]).dtype.kind == "f" and p.startswith(prefix)}
     p = max(errs, key=errs.get)
     return errs[p], p
+
+
+JAX_MESH_SERVE = r"""
+import dataclasses, json, sys
+import numpy as np, jax, jax.numpy as jnp
+jax.devices()     # the device count is fixed before dryrun's import sets one
+from repro import configs
+from repro.compat import make_mesh
+from repro.kernels import ref as jref
+from repro.launch import dryrun
+from repro.models import lm, rwkv6
+from repro.models.api import ModelAPI
+from repro.sharding import partition
+from repro_torch.models.convert import nest
+# the JAX rwkv prefill asserts S % 16 == 0 in its chunked form (ROADMAP
+# queue 3 item h): the sequential oracle computes the same function
+rwkv6.wkv6_chunked = lambda r, k, v, w, u, state=None, chunk=0: \
+    jref.wkv6_ref(r, k, v, w, u, state)
+record = []
+moe_apply = lm.moe_apply
+def recording_moe_apply(p, x, cfg):
+    out, aux = moe_apply(p, x, cfg)
+    xt = x.reshape(-1, x.shape[-1])
+    probs = jax.nn.softmax((xt @ p["router"].astype(x.dtype))
+                           .astype(jnp.float32), -1)
+    _, gate_e = jax.lax.top_k(probs, cfg.top_k)
+    jax.debug.callback(lambda e, d: record.append((np.asarray(e), float(d))),
+                       gate_e, aux["moe_dropped"], ordered=False)
+    return out, aux
+lm.moe_apply = recording_moe_apply
+spec = json.load(open(sys.argv[1] + ".json"))
+for run in spec["runs"]:
+    cfg = dataclasses.replace(
+        configs.smoke_variant(configs.ARCHS[run["arch"]]), **run["cfg"])
+    api = ModelAPI(cfg)
+    mesh = make_mesh(tuple(run["shape"]), tuple(run["names"]))
+    rules = getattr(partition, run["rules"])
+    base = sys.argv[1] + "." + run["file"]
+    data = np.load(base + ".in.npz")
+    params = nest({k[2:]: data[k] for k in data.files if k.startswith("p/")})
+    tokens = data["tokens"]
+    B, S = tokens.shape
+    T, steps = run["cache"], run["steps"]
+    # _lower_prefill / _lower_decode as they are, fed float32 weights and
+    # a prompt of S tokens into caches of T positions
+    f32 = jax.eval_shape(lambda: api.model.init(jax.random.key(0)))
+    dryrun._serve_param_specs = lambda api: f32
+    specs = api.input_specs
+    api.input_specs = lambda shape: (
+        {"tokens": jax.ShapeDtypeStruct((B, S), jnp.int32)}
+        if shape.kind == "prefill" else specs(shape))
+    record.clear()
+    with partition.use_mesh(mesh, rules):
+        pre = dryrun._lower_prefill(
+            api, configs.ShapeConfig("p", "prefill", T, B), mesh,
+            rules).compile()
+        dec = dryrun._lower_decode(
+            api, configs.ShapeConfig("d", "decode", T, B), mesh,
+            rules).compile()
+        logits, caches = pre(*jax.device_put((params, {"tokens": tokens}),
+                                             pre.input_shardings[0]))
+        out = [np.asarray(logits)]
+        for i in range(steps):
+            tok = out[-1][:, -1].argmax(-1).astype(np.int32)[:, None]
+            b = {"tokens": tok, "positions": np.full((B, 1), S + i, np.int32)}
+            logits, caches = dec(*jax.device_put((params, b, caches),
+                                                 dec.input_shardings[0]))
+            out.append(np.asarray(logits))
+    jax.effects_barrier()
+    np.savez(base + ".out.npz",
+             **{f"logits/{i}": x for i, x in enumerate(out)},
+             **{f"route/{i}": e for i, (e, _) in enumerate(record)})
+    json.dump([d for _, d in record], open(base + ".out.json", "w"))
+"""
+
+
+def _file(name: str) -> str:
+    return name.replace("/", "-")
+
+
+class JaxMeshServe:
+    """The JAX package's serving under a mesh, in a subprocess of
+    ``n_devices`` host devices: each run {"name", "arch", "cfg" (smoke
+    overrides), "mesh": (shape, names), "rules", "params" (the JAX
+    layout, numpy), "tokens" (B, S), "cache", "steps"} runs the jits that
+    ``dryrun._lower_prefill`` and ``_lower_decode`` build, with their
+    in_shardings, fed the float32 weights: the prompt, then greedy decode
+    steps.  ``results()`` waits and returns {name: (each step's logits,
+    each MoE call's moe_dropped, each MoE call's routing (T, k))}."""
+
+    def __init__(self, path: str, runs, n_devices: int = 4):
+        self.path, self.names = path, [r["name"] for r in runs]
+        for r in runs:
+            np.savez(f"{path}.{_file(r['name'])}.in.npz", tokens=r["tokens"],
+                     **{f"p/{k}": v for k, v in
+                        flatten_paths(r["params"]).items()})
+        with open(path + ".json", "w") as f:
+            json.dump({"runs": [dict(
+                name=r["name"], file=_file(r["name"]), arch=r["arch"],
+                cfg=r["cfg"],
+                shape=list(r["mesh"][0]), names=list(r["mesh"][1]),
+                rules=r["rules"], cache=r["cache"], steps=r["steps"])
+                for r in runs]}, f)
+        self.proc = _jax_subprocess(JAX_MESH_SERVE, path, n_devices)
+
+    def results(self, timeout: float = 300.0):
+        _wait(self.proc, timeout)
+        out = {}
+        for name in self.names:
+            base = f"{self.path}.{_file(name)}"
+            data = np.load(base + ".out.npz")
+            with open(base + ".out.json") as f:
+                dropped = json.load(f)
+            n = sum(k.startswith("logits/") for k in data.files)
+            out[name] = ([data[f"logits/{i}"] for i in range(n)], dropped,
+                         [data[f"route/{i}"] for i in range(len(dropped))])
+        return out

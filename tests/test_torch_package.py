@@ -1,5 +1,5 @@
-"""The port stands alone: nothing in src/repro_torch or chip_smoke.py
-imports jax or the JAX package, serving the smoke config loads neither,
+"""The port stands alone: nothing in src/repro_torch, chip_smoke.py or
+mesh_serve_cards.py imports jax or the JAX package, serving the smoke config loads neither,
 and the port's config copies equal the JAX package's field for field."""
 import ast
 import dataclasses
@@ -17,7 +17,7 @@ from repro_torch import configs  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
-    + [ROOT / "chip_smoke.py"]
+    + [ROOT / "chip_smoke.py", ROOT / "mesh_serve_cards.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 

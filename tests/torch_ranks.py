@@ -399,3 +399,158 @@ def numpy_tree(tree):
     if isinstance(tree, dict):
         return {k: numpy_tree(v) for k, v in tree.items()}
     return np.asarray(tree)
+
+
+# -- serving under a mesh ----------------------------------------------------
+
+def serve_once(api, tokens, cache_len: int, steps: int, mesh=None,
+               rules=None):
+    """Prefill ``tokens`` (B, S) into caches of ``cache_len`` positions,
+    then ``steps`` greedy decode steps, each token the argmax of the
+    gathered logits.  On ``mesh`` under ``rules`` the weights (float32,
+    not cast) and caches are placed by ``dryrun._lower_prefill`` and
+    ``_lower_decode``, else the model runs unsharded.  Returns (each
+    step's gathered logits (B, 1, V) as numpy, the tokens chosen (B,
+    steps), the caches, what the MoE recorded: each call's moe_dropped
+    and each call's routing, the gate experts of this rank's groups)."""
+    from unittest import mock
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.models import moe
+    from repro_torch.sharding.partition import unshard
+    B, S = tokens.shape
+    pshape = ShapeConfig("p", "prefill", cache_len, B)
+    dshape = ShapeConfig("d", "decode", cache_len, B)
+    if mesh is None:
+        prefill = lambda b: api.prefill(b, pshape)          # noqa: E731
+        decode = api.serve_step
+    else:
+        specs = dryrun._param_specs(api)
+        prefill = dryrun._lower_prefill(api, pshape, mesh, rules, specs).fn
+        decode = dryrun._lower_decode(api, dshape, mesh, rules, specs).fn
+    rec = {"dropped": [], "routes": [], "call": []}
+    route, apply = moe.route, moe.moe_apply
+
+    def recording_route(*a):
+        out = route(*a)
+        rec["call"].append(out[3].numpy().copy())
+        return out
+
+    def recording_apply(p, x, cfg):
+        rec["call"] = []
+        out, aux = apply(p, x, cfg)
+        rec["dropped"].append(float(unshard(aux["moe_dropped"])))
+        rec["routes"].append(np.concatenate(rec["call"]))
+        return out, aux
+    logits, toks = [], []
+    with mock.patch.object(moe, "route", recording_route), \
+            mock.patch.object(moe, "moe_apply", recording_apply):
+        out, caches = prefill({"tokens": torch.from_numpy(tokens)})
+        for i in range(steps + 1):
+            logits.append(unshard(out).numpy().copy())
+            if i == steps:
+                break
+            tok = logits[-1][:, -1].argmax(-1).astype(np.int32)[:, None]
+            toks.append(tok[:, 0])
+            pos = np.full((B, 1), S + i, np.int32)
+            out, caches = decode({"tokens": torch.from_numpy(tok),
+                                  "positions": torch.from_numpy(pos)},
+                                 caches)
+    return logits, np.stack(toks, 1), caches, rec["dropped"], rec["routes"]
+
+
+def _spec_slices(spec, mesh, shape):
+    """The global slices of a tensor of ``shape`` that this rank's shard
+    holds under partition spec ``spec``, from the mesh coordinates
+    alone."""
+    out = []
+    for d, n in enumerate(shape):
+        entry = spec[d] if d < len(spec) else None
+        idx, parts = 0, 1
+        for a in () if entry is None else \
+                (entry,) if isinstance(entry, str) else entry:
+            size = mesh.size(mesh.mesh_dim_names.index(a))
+            idx, parts = idx * size + mesh.get_local_rank(a), parts * size
+        out.append(slice(idx * n // parts, (idx + 1) * n // parts))
+    return tuple(out)
+
+
+def cache_report(api, caches, mesh, rules) -> tuple:
+    """(faults, specs, the caches gathered whole as numpy by path) of a
+    run's caches: each leaf's placements must be its spec's under
+    ``rules`` (``cache_axes(stacked=False)``), and this rank's shard must
+    hold exactly the positions, batch rows and heads that spec names, bit
+    for bit against the gathered tensor."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.models.convert import flatten_paths
+    from repro_torch.sharding.partition import (logical_to_spec,
+                                                spec_to_placements, unshard)
+    axes = {f"{j}/{p}": a for j, tree in enumerate(api.cache_axes(False))
+            for p, a in flatten_paths(tree).items()}
+    faults, specs, whole = [], {}, {}
+    for j, tree in enumerate(caches):
+        for p, t in flatten_paths(tree).items():
+            path = f"{j}/{p}"
+            if not isinstance(t, torch.Tensor):
+                whole[path] = t
+                continue
+            full = unshard(t)
+            whole[path] = full.numpy().copy()
+            if mesh is None:
+                continue
+            spec = logical_to_spec(axes[path], mesh, rules, tuple(t.shape))
+            specs[path] = spec
+            if not isinstance(t, DTensor) or \
+                    tuple(t.placements) != spec_to_placements(spec, mesh):
+                placed = getattr(t, "placements", None)
+                faults.append(f"{path}: placed {placed}, spec {spec}")
+                continue
+            local = t.to_local()
+            want = full[_spec_slices(spec, mesh, t.shape)]
+            if local.shape != want.shape or not torch.equal(local, want):
+                faults.append(f"{path}: the shard is not the spec's slice "
+                              f"{_spec_slices(spec, mesh, t.shape)}")
+    return faults, specs, whole
+
+
+def serve_runs(rank, world, runs):
+    """Each run: {"name", "arch", "cfg" (overrides of its smoke variant),
+    "mesh": (shape, names), "rules", "params" (the JAX layout, numpy),
+    "tokens" (B, S) int32, "cache" (positions), "steps"}: ``serve_once``
+    on the mesh from those weights, then ``cache_report``.  Returns
+    {name: {"logits", "tokens", "caches" (gathered; rank 0 alone keeps
+    the arrays), "specs", "faults", "dropped", "routes", "coord" (this
+    rank's mesh coordinate), "seconds"}}; the meshes are made once per
+    shape, in the runs' order, on every rank."""
+    import dataclasses
+    import time
+
+    from repro_torch import configs
+    from repro_torch.models.api import ModelAPI
+    from repro_torch.models.convert import load_jax_params
+    from repro_torch.sharding import partition
+    meshes, out = {}, {}
+    for r in runs:
+        shape, names = r["mesh"]
+        if tuple(shape) not in meshes:
+            meshes[tuple(shape)] = _mesh(shape, names)
+        mesh = meshes[tuple(shape)]
+        rules = getattr(partition, r["rules"])
+        cfg = dataclasses.replace(
+            configs.smoke_variant(configs.ARCHS[r["arch"]]), **r["cfg"])
+        api = ModelAPI(cfg, device="cpu")
+        load_jax_params(api.model, r["params"])
+        t0 = time.perf_counter()
+        logits, toks, caches, dropped, routes = serve_once(
+            api, r["tokens"], r["cache"], r["steps"], mesh, rules)
+        seconds = time.perf_counter() - t0
+        faults, specs, whole = cache_report(api, caches, mesh, rules)
+        keep = rank == 0
+        out[r["name"]] = dict(
+            logits=logits if keep else None, tokens=toks,
+            caches=whole if keep else None, specs=specs, faults=faults,
+            dropped=dropped, routes=routes, seconds=seconds,
+            coord=tuple(mesh.get_coordinate()))
+    return out
