@@ -148,10 +148,11 @@
 17. Checkpoints: phase 15's train state saved through ``CheckpointStore``
     (async) and restored onto the card into a fresh state, bit for bit; a
     second save reuses every blob.  Then ``python -m
-    repro_torch.launch.train --arch smollm-135m --steps 50 --ckpt-dir D``
-    as a user runs it, with ``TMPDIR`` set to a fresh directory (it makes
-    its own corpus), and again with ``--resume --steps 2``, which must
-    resume from step 50; every loss finite.
+    repro_torch.launch.train --arch smollm-135m --steps 10 --ckpt-every 10
+    --ckpt-dir D`` as a user runs it (50 steps until phase 30 took its
+    time), with ``TMPDIR`` set to a fresh directory (it makes its own
+    corpus), and again with ``--resume --steps 2``, which must resume from
+    step 10; every loss finite.
 18. Train rwkv6-3b at full width and 16 of its 32 layers (1.70 B
     parameters; uncut until phase 29 took its time; run right after phase 17,
     as 19 and 21 are): float32
@@ -263,23 +264,40 @@
     layers (the MoE at capacity factor n_experts / top_k: no pair drops,
     whatever its groups) and recurrentgemma-9b at one group, full width,
     float32, 8 decode steps (the hybrid's 2044-token prompts put them
-    across its 2048-slot ring's wrap).  The launch counts are set to 0
+    across its 2048-slot ring's wrap), and internvl2-26b at 1 layer (256
+    patches before 256 tokens) and whisper-medium at 2 + 2 layers (1500
+    frames, its cross cache length-sharded as its self cache, and a BOS)
+    under SERVE_RULES and SERVE_BIG_RULES.  The launch counts are set to 0
     just before each run and read just after: the mesh launches each
     model kernel as often as unsharded.  Float32: every step's logits
     within 1e-5 relative L2 of the unsharded run's, and the same tokens;
     bf16: the prefill logits within 4e-2, the differing tokens printed.
     Then in
     this process (c) flash at qwen3-moe-30b-a3b's prefill (H 32 / KV 4,
-    hd 128) and at recurrentgemma-9b's attention (H 16 / KV 1, hd 256,
-    window 2048), wkv6 at rwkv6-3b's 40 heads and rglru_scan at 4096 and
+    hd 128), at recurrentgemma-9b's attention (H 16 / KV 1, hd 256,
+    window 2048), at internvl2-26b's (H 48 / KV 8, hd 128) and on
+    whisper-medium's non-causal encoder (H 16 over 1500 frames, hd 64),
+    wkv6 at rwkv6-3b's 40 heads and rglru_scan at 4096 and
     2560 lanes, launched on every rank's head, channel or lane slice on
     a model axis of 2 and 4: each held to its plain version on the slice
     and compared bit for bit with the same slice of the whole-tensor
     launch; (d) qwen3-moe-30b-a3b's decode cache (B 8, T 1024, H 32, KV
     4, hd 128) in float32 and int8 split into 2, 4 and 8 length parts,
     the valid length ending inside a part and at least one part wholly
-    past it: the split-K (``decode_partials``, ``combine_partials``)
-    within 1e-5 of the one-part ``decode_attention``.
+    past it, and whisper-medium's cross cache (B 8, 1500 frames, 16
+    heads of 64) in 2, 4 and 8 parts as DTensor cuts them (8 uneven: 188
+    x 7 and 184), every frame valid: the split-K (``decode_partials``,
+    ``combine_partials``) within 1e-5 of the one-part
+    ``decode_attention``.
+30. The dry-run (after phase 24): ``launch/dryrun.py``'s ``lower_cell``
+    for smollm-135m's prefill (B 8 x S 512) and decode step (B 8, a cache
+    of 1024) on this card's one-rank mesh, counted by
+    ``launch/roofline.py``'s ``StepCounter`` on ``meta`` and on the card:
+    the FLOPs, bytes, kernels and collectives the same counts; then 5
+    timed steps, whose median must not be below ``step_time_bound_s``,
+    printed with the ``roofline_fraction``; flash launches 30 a prefill.
+    Then granite-8b's ``decode_32k`` on the "single" mesh (256 ranks of a
+    fake process group, on meta), with its run_s.
 
 Every check that fails exits non-zero before the last line is printed.
 Without a CUDA card, or run from a directory without the repository's
@@ -321,13 +339,14 @@ from repro_torch.core import ops as rops  # noqa: E402
 from repro_torch.core.arrow import Column, Table  # noqa: E402
 from repro_torch.core.plan import compiler as plan_compiler  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
-    build, flash_attention, ops, ref, relational, take_gather, wkv6)
+    build, costs, flash_attention, ops, ref, relational, take_gather, wkv6)
 from repro_torch.models import attention  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.api import ModelAPI  # noqa: E402
 from repro_torch.data.pipeline import (  # noqa: E402
     PipelineConfig, ZerrowDataPipeline, join_filter_fn, make_doc_meta,
     make_text_shards)
+from repro_torch.launch import roofline  # noqa: E402
 from repro_torch.launch import serve as serve_launcher  # noqa: E402
 from repro_torch.models.convert import (  # noqa: E402
     flatten_paths, jax_leaves, train_state_to_jax)
@@ -338,10 +357,12 @@ from repro_torch.serve.engine import (  # noqa: E402
     Request, ServeEngine, ZerrowPromptSource, make_prompt_shards,
     pad_prompts)
 
-# H100 SXM, NVIDIA data sheet (dense, at the full 700 W power limit)
-HBM_BYTES_PER_S = 3.35e12
-BF16_FLOP_PER_S = 989e12
-F32_FLOP_PER_S = 67e12          # float32 outside the tensor cores
+# H100 SXM, NVIDIA data sheet (dense, at the full 700 W power limit): the
+# constants of the port's roofline, and each kernel's work from
+# ``kernels/costs.py``, the count its wrapper reports to a dry run
+HBM_BYTES_PER_S = roofline.HBM_BW
+BF16_FLOP_PER_S = roofline.PEAK_FLOPS
+F32_FLOP_PER_S = roofline.F32_FLOPS          # outside the tensor cores
 
 SERVE_SHAPE = dict(B=8, S=512, T=512, H=9, KV=3, hd=64)
 # qwen3-moe-30b-a3b's served prefill: 32 query and 4 KV heads of 128
@@ -701,9 +722,8 @@ def phase_times(sv=SERVE_SHAPE, causal: bool = True):
     kern += time_ms(kernel)
     plain_t += time_ms(plain)
     lib = time_ms(library)
-    nbytes = sum(x.numel() * x.element_size() for x in (q, k, v, q))
     # causal: half the pairs
-    flops = 4 * B * H * S * T * hd * (0.5 if causal else 1.0)
+    flops, nbytes, _ = costs.flash_attention(q, k, v, causal=causal)
     bound_ms, bound_by = bound(nbytes, flops, BF16_FLOP_PER_S)
     ms, plain_ms, lib_ms = (statistics.median(t)
                             for t in (kern, plain_t, lib))
@@ -1127,7 +1147,7 @@ def phase_relational_times() -> dict:
         plain_ms=sum(median_ms(lambda x=x: ref.hash_fixed_ref(x))
                      for x in xs),
         library_ms=None,
-        bytes=sum(16 * x.numel() for x in xs),
+        bytes=sum(costs.hash_fixed(x).nbytes for x in xs),
         edge_ms=sum(h2d_d2h_ms([a], [8 * len(a)]) for a, _ in sides))
     # combine_hashes: one key column per side
     cs = [ops.hash_fixed(x)[None] for x in xs]
@@ -1136,7 +1156,7 @@ def phase_relational_times() -> dict:
                for c in cs),
         plain_ms=sum(median_ms(lambda c=c: ref.combine_ref(c)) for c in cs),
         library_ms=None,
-        bytes=sum(16 * c.numel() for c in cs),
+        bytes=sum(costs.combine_hashes(c).nbytes for c in cs),
         edge_ms=sum(h2d_d2h_ms([a], [8 * len(a)]) for a, _ in sides))
     # filter_join_gather: left (sorted) and right (random) gathers
     gs = [(dev(pidx), dev(pi)), (dev(bidx), dev(bi))]
@@ -1150,7 +1170,7 @@ def phase_relational_times() -> dict:
             s, i, -1)) for s, i in gs),
         library_ms=sum(median_ms(lambda s=s, i=i: library_gather(s, i))
                        for s, i in gs),
-        bytes=sum(8 * (s.numel() + 2 * i.numel()) for s, i in gs),
+        bytes=sum(costs.sentinel_gather(s, i).nbytes for s, i in gs),
         edge_ms=sum(h2d_d2h_ms([s, i], [8 * len(i)])
                     for s, i in ((pidx, pi), (bidx, bi))))
     # segreduce: the group-by of the left join: 15M rows, 26 groups
@@ -1237,14 +1257,16 @@ def segreduce_times(cust, codes, amount) -> dict:
         plain_ms=median_ms(lambda: ref.segreduce_many_ref(
             HOWS, vals, order, starts, None)),
         library_ms=sum(median_ms(f) for f in library),
-        bytes=16 * n + 40 * G,
+        bytes=costs.segreduce(HOWS, vals, order, starts, None, n).nbytes,
         edge_ms=h2d_d2h_ms([order_np, starts_np, amount], [8 * G] * 4),
         paths={p: ms[p] for p in PATH_GROUPS},
         paths_by_groups=sweep,
         one_op_calls_ms=ms["one_op"], runs_of_each_cell=times,
         many_groups=dict(groups=Gm, runs_ms=ms["many_runs"],
                          one_op_calls_ms=ms["many_one_op"],
-                         bound_ms=(16 * n + 40 * Gm) / HBM_BYTES_PER_S * 1e3))
+                         bound_ms=costs.segreduce(
+                             HOWS, vals, m_order, m_starts, None, n).nbytes
+                         / HBM_BYTES_PER_S * 1e3))
     print(f"segreduce at n={n} G={G}, count+sum+min+max in one call, ms "
           f"(two turns' medians of 5 replays of 5 calls): private "
           f"{times['private']}, runs {times['runs']}; four one-op calls "
@@ -1837,9 +1859,8 @@ def phase_recurrent_times() -> dict:
     kern, pl = timed_pair(lambda: ops.wkv6(r, k, v, w, u, st),
                           lambda: ref.wkv6_ref(r, k, v, w, u, st),
                           plain_iters=2)
-    nbytes = sum(x.numel() * x.element_size()
-                 for x in (r, k, v, w, u, st, r, st))   # out like r, state
-    flops = 5 * N * N * B * S * H
+    # the output like r and the final state written
+    flops, nbytes, _ = costs.wkv6(r, k, v, w, u, st)
     # the bf16 kernel's products run on the tensor cores; the float32
     # kernel's on the CUDA cores
     bound_ms, by = bound(nbytes, flops, BF16_FLOP_PER_S)
@@ -1871,8 +1892,8 @@ def phase_recurrent_times() -> dict:
     h0 = torch.zeros(B, W, device=CUDA)
     kern, pl = timed_pair(lambda: ops.rglru_scan(a, b, h0),
                           lambda: ref.rglru_ref(a, b, h0), plain_iters=2)
-    nbytes = 4 * (3 * B * S * W + 2 * B * W)
-    bound_ms, by = bound(nbytes, 2 * B * S * W, F32_FLOP_PER_S)
+    flops, nbytes, _ = costs.rglru_scan(a, b, h0)
+    bound_ms, by = bound(nbytes, flops, F32_FLOP_PER_S)
     res["rglru_scan"] = dict(ms=statistics.median(kern),
                              plain_ms=statistics.median(pl),
                              bound_ms=bound_ms, bound_by=by, library_ms=None)
@@ -1898,8 +1919,9 @@ def phase_recurrent_times() -> dict:
             lambda: ref.attention_ref(q, k, v, window=WINDOW), plain_iters=5)
         lib = time_ms(library, iters=5, reps=5)
         pairs = int(mask.sum())                  # visible (query, key) pairs
-        nbytes = sum(x.numel() * x.element_size() for x in (q, k, v, q))
-        flops = 4 * B * H * hd * pairs
+        flops, nbytes, _ = costs.flash_attention(q, k, v, window=WINDOW)
+        check(flops == 4 * B * H * hd * pairs, "flash's count of the "
+              "window's visible pairs")
         bound_ms, by = bound(nbytes, flops, BF16_FLOP_PER_S)
         res[f"flash_hd256_{label}"] = dict(
             shape=[B, S, H, KV, hd], window=WINDOW, ms=statistics.median(kern),
@@ -2112,9 +2134,8 @@ def phase_gather_times() -> dict:
         err = bit_err(kernel(), library(), f"{name} [{label}] vs index_select")
         kern, pl = timed_pair(kernel, plain)
         lib = time_ms(library)
-        row = W * table.element_size()
         distinct = torch.unique(idx).numel()
-        nbytes = M * idx.element_size() + distinct * row + M * row
+        nbytes = costs.row_gather(table, idx, distinct).nbytes
         bound_ms, by = bound(nbytes, 0, F32_FLOP_PER_S)
         staged = name == "dict_decode" and take_gather.staged(table)
         cell = dict(cell=label, R=R, W=W, M=M, dtype=str(dtype)[6:],
@@ -2765,6 +2786,9 @@ def phase_train_vs_cpu(batches, cfg=None, what: str = "train",
     del apis
 
 
+LAUNCH_STEPS = 10
+
+
 def phase_checkpoint(root: str, state) -> None:
     """Phase 17: the phase-15 train state saved through CheckpointStore
     (async) and restored onto the card into a fresh state, bit for bit; a
@@ -2813,7 +2837,9 @@ def phase_checkpoint(root: str, state) -> None:
     os.makedirs(env["TMPDIR"])
     d = os.path.join(root, "launcher-ckpt")
     outs = []
-    for extra in (["--steps", "50"], ["--steps", "2", "--resume"]):
+    # a snapshot at step 10 (at 50 until phase 30 took its time)
+    for extra in (["--steps", str(LAUNCH_STEPS), "--ckpt-every",
+                   str(LAUNCH_STEPS)], ["--steps", "2", "--resume"]):
         cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
                "smollm-135m", "--ckpt-dir", d, *extra]
         t0 = time.perf_counter()
@@ -2828,8 +2854,8 @@ def phase_checkpoint(root: str, state) -> None:
         check(len(losses) > 0 and all(np.isfinite(losses)),
               f"launcher {extra}: losses {losses}")
         outs.append(r.stdout)
-    check("resumed from step 50" in outs[1],
-          "launcher --resume did not resume from step 50")
+    check(f"resumed from step {LAUNCH_STEPS}" in outs[1],
+          f"launcher --resume did not resume from step {LAUNCH_STEPS}")
 
 
 # --------------------------------------------------------------------------
@@ -3319,6 +3345,15 @@ SERVE_MESH = dict(B=8, S=(256, 512), cache=1024, steps=16)
 SERVE_MESH_CUT = {"rwkv6-3b": (2, 4, 256, 512, 8),
                   "recurrentgemma-9b": (3, 2, 2044, 4096, 8),
                   "qwen3-moe-30b-a3b": (2, 8, 256, 512, 8)}
+# Whisper's 30-second window: n_audio_ctx frames
+N_FRAMES = 1500
+# 29b, the vlm and enc-dec families, float32, under SERVE_RULES and
+# SERVE_BIG_RULES, as (n_layers, B, text tokens, cache length, decode
+# steps): internvl2-26b at one layer, its 256 patches before 256 tokens;
+# whisper-medium at 2 encoder and 2 decoder layers, 1500 frames (its
+# cross cache, length-sharded as its self cache) and a BOS
+SERVE_MESH_FAMILIES = {"internvl2-26b": (1, 8, 256, 640, 8),
+                       "whisper-medium": (2, 8, 1, N_FRAMES, 8)}
 # float32, mesh against unsharded, relative L2 of every step's logits: at
 # world size 1 every shard is the whole tensor and the sums are the same;
 # the split-K decode's one part divides by the sum of exp(s - m) after the
@@ -3326,11 +3361,20 @@ SERVE_MESH_CUT = {"rwkv6-3b": (2, 4, 256, 512, 8),
 SERVE_MESH_TOL = 1e-5
 # 29c: the per-rank slices under SERVE_RULES on a model axis of 2 and 4
 SLICE_MP = (2, 4)
+# flash at the served prefills, (B, S, H, KV, hd, window, causal)
+SLICE_FLASH = {
+    "qwen3-moe-30b-a3b prefill": (8, 512, 32, 4, 128, 0, True),
+    "recurrentgemma-9b attention": (8, 512, 16, 1, 256, WINDOW, True),
+    "internvl2-26b prefill": (8, 512, 48, 8, 128, 0, True),
+    "whisper-medium encoder": (8, 1500, 16, 16, 64, 0, False)}
 # 29d: qwen3-moe-30b-a3b's decode cache, split into length parts; the
 # valid length ends inside a part and leaves at least one part wholly
 # past it at every split
 SPLIT_SHAPE = dict(B=8, T=1024, H=32, KV=4, hd=128)
 SPLIT_PARTS, SPLIT_LEN = (2, 4, 8), 300
+# and whisper's cross cache, every frame valid, split as DTensor splits
+# 1500 frames (8 parts: 188 x 7 and 184)
+CROSS_SHAPE = dict(B=8, T=1500, H=16, KV=16, hd=64)
 
 
 def serve_mesh_cells() -> list:
@@ -3363,19 +3407,32 @@ def serve_mesh_cells() -> list:
         cells.append(dict(label=f"{name} ({n} layers) float32", cfg=cfg,
                           B=B, S=S, cache=cache, steps=steps, bf16=False,
                           rules=("SERVE_RULES",)))
+    for name, (n, B, S, cache, steps) in SERVE_MESH_FAMILIES.items():
+        cfg = dataclasses.replace(big_cfg(name, n), dtype="float32")
+        depth = f"{n} + {n}" if cfg.is_encdec else f"{n}"
+        cells.append(dict(label=f"{name} ({depth} layers) float32",
+                          cfg=cfg, B=B, S=S, cache=cache, steps=steps,
+                          bf16=False,
+                          rules=("SERVE_RULES", "SERVE_BIG_RULES")))
     return cells
 
 
 def serve_steps(api, tokens, cache_len: int, steps: int, dsync,
-                lowered=None):
-    """Prefill ``tokens`` into caches of ``cache_len`` positions, then
-    ``steps`` greedy decode steps; ``lowered``: the (prefill, decode)
+                lowered=None, extra=None, hold=None):
+    """Prefill ``tokens`` (and ``extra``'s patches or frames) into caches
+    of ``cache_len`` positions, then ``steps`` greedy decode steps, after
+    the patches and the text; ``lowered``: the (prefill, decode)
     functions of ``_lower_prefill`` / ``_lower_decode``, None to run
     unsharded.  The launch counts are set to 0 just before and read just
-    after.  Returns (each step's logits gathered, float32 (B, V) on the
-    device, the launches, prefill seconds, decode seconds)."""
+    after.  ``hold`` (a dict) keeps the prefill's caches gathered whole
+    ("cache") and each decode step's tokens ("tokens").  Returns (each
+    step's logits gathered, float32 (B, V) on the device, the launches,
+    prefill seconds, decode seconds)."""
     from repro_torch.sharding.partition import unshard
     B, S = tokens.shape
+    extra = extra or {}
+    if "patches" in extra:
+        S += extra["patches"].shape[1]
     pshape = ShapeConfig("p", "prefill", cache_len, B)
     if lowered is None:
         prefill = lambda b: api.prefill(b, pshape)          # noqa: E731
@@ -3385,13 +3442,18 @@ def serve_steps(api, tokens, cache_len: int, steps: int, dsync,
     ops.reset_launch_counts()
     dsync()
     t0 = time.perf_counter()
-    out, caches = prefill({"tokens": tokens})
+    out, caches = prefill({"tokens": tokens, **extra})
     logits = [unshard(out)[:, -1].float()]
     dsync()
     t_pre = time.perf_counter() - t0
+    if hold is not None:
+        hold["cache"] = gathered_caches(caches)
+        hold["tokens"] = []
     t0 = time.perf_counter()
     for i in range(steps):
         tok = logits[-1].argmax(-1).to(torch.int32)[:, None]
+        if hold is not None:
+            hold["tokens"].append(tok)
         pos = torch.full((B, 1), S + i, dtype=torch.int32,
                          device=tokens.device)
         out, caches = decode({"tokens": tok, "positions": pos}, caches)
@@ -3399,6 +3461,51 @@ def serve_steps(api, tokens, cache_len: int, steps: int, dsync,
     dsync()
     launches = {k: ops.launch_counts[k] for k in MODEL_KERNELS}
     return logits, launches, t_pre, time.perf_counter() - t0
+
+
+def gathered_caches(caches):
+    """A copy of a run's caches with every DTensor gathered whole (a
+    collective over its mesh) and every tensor cloned, in the same
+    structure (a "len" stays an int)."""
+    from repro_torch.sharding.partition import unshard
+    if isinstance(caches, dict):
+        return {k: gathered_caches(v) for k, v in caches.items()}
+    if isinstance(caches, (list, tuple)):
+        return type(caches)(gathered_caches(v) for v in caches)
+    if isinstance(caches, torch.Tensor):
+        return unshard(caches).clone()
+    return caches
+
+
+def int8_cache_checks(api, mesh_hold, plain_hold, mesh_logits, S: int,
+                      dsync) -> dict:
+    """The int8 KV cache of a mesh run against the unsharded run's: every
+    code of the mesh prefill's cache within one quantum of the unsharded
+    one's (the mesh's k and v differ by float32 rounding, so a code may
+    round the other way), the codes that differ counted; and the mesh
+    cache, gathered and fed to the unsharded decode with the mesh run's
+    tokens, giving each step's logits within ``SERVE_MESH_TOL`` of the
+    mesh run's own (so the decode itself adds nothing)."""
+    flipped = total = worst = 0
+    for got, want in zip(mesh_hold["cache"], plain_hold["cache"]):
+        for name in ("k", "v"):
+            d = (got[name].int() - want[name].int()).abs()
+            worst = max(worst, int(d.max()))
+            flipped += int((d > 0).sum())
+            total += d.numel()
+    caches = mesh_hold["cache"]
+    B = mesh_logits[0].shape[0]
+    errs = []
+    with torch.no_grad():
+        for i, tok in enumerate(mesh_hold["tokens"]):
+            pos = torch.full((B, 1), S + i, dtype=torch.int32,
+                             device=tok.device)
+            out, caches = api.serve_step({"tokens": tok, "positions": pos},
+                                         caches)
+            errs.append(rel_l2(out[:, -1].float(), mesh_logits[i + 1]))
+    dsync()
+    return dict(max_code_diff=worst, flipped=flipped, codes=total,
+                replay_errs=errs)
 
 
 def mesh_serve_runs(cells, dev, mesh, dsync) -> list:
@@ -3416,8 +3523,11 @@ def mesh_serve_runs(cells, dev, mesh, dsync) -> list:
     for c in cells:
         cfg, B, S = c["cfg"], c["B"], c["S"]
         g = torch.Generator(device=dev).manual_seed(29)
-        tokens = torch.randint(1, cfg.vocab, (B, S), generator=g,
-                               device=dev, dtype=torch.int32)
+        tokens = torch.full((B, 1), WHISPER_BOS, device=dev,
+                            dtype=torch.int32) if cfg.is_encdec else \
+            torch.randint(1, cfg.vocab, (B, S), generator=g, device=dev,
+                          dtype=torch.int32)
+        extra = extra_inputs(cfg, B, g)
 
         def model():
             api = ModelAPI(cfg, device=dev)
@@ -3429,8 +3539,11 @@ def mesh_serve_runs(cells, dev, mesh, dsync) -> list:
         if c["bf16"]:
             for p in api.model.parameters():
                 p.data = p.data.to(torch.bfloat16)
+        int8 = cfg.kv_cache_dtype == "int8" and not c["bf16"]
+        plain_hold = {} if int8 else None
         plain, plain_launches, *plain_s = serve_steps(
-            api, tokens, c["cache"], c["steps"], dsync)
+            api, tokens, c["cache"], c["steps"], dsync, extra=extra,
+            hold=plain_hold)
         plain_toks = torch.stack([x.argmax(-1) for x in plain[:-1]], 1)
         r = {"label": c["label"], "layout": layout(api.model),
              "params": n_params, "B": B, "S": S, "cache": c["cache"],
@@ -3454,9 +3567,10 @@ def mesh_serve_runs(cells, dev, mesh, dsync) -> list:
             want = torch.bfloat16 if c["bf16"] else torch.float32
             dtensors = sum(isinstance(p, DTensor) and p.dtype == want
                            for p in api.model.parameters())
+            hold = {} if int8 else None
             logits, launches, *secs = serve_steps(
                 api, tokens, c["cache"], c["steps"], dsync,
-                (pre.fn, dec.fn))
+                (pre.fn, dec.fn), extra, hold)
             toks = torch.stack([x.argmax(-1) for x in logits[:-1]], 1)
             r["mesh"][rules] = dict(
                 launches=launches, seconds=secs, dtensors=dtensors,
@@ -3465,7 +3579,12 @@ def mesh_serve_runs(cells, dev, mesh, dsync) -> list:
                 finite=all(bool(torch.isfinite(x).all()) for x in logits),
                 tokens_differ=int((toks != plain_toks).sum()),
                 tokens=int(toks.numel()))
-            del api, pre, dec, logits
+            del api, pre, dec
+            if int8:
+                # the unsharded model decodes from the mesh's own cache
+                r["mesh"][rules].update(int8_cache_checks(
+                    model(), hold, plain_hold, logits, S, dsync))
+            del logits, hold
         r["seconds"] = time.perf_counter() - t0
         del plain
         if dev.type == "cuda":
@@ -3516,11 +3635,9 @@ def phase_rank_slices() -> dict:
     version on the slice and against the whole-tensor launch's slice."""
     out = {}
     bf = torch.bfloat16
-    for label, (B, S, H, KV, hd, window) in (
-            ("qwen3-moe-30b-a3b prefill", (8, 512, 32, 4, 128, 0)),
-            ("recurrentgemma-9b attention", (8, 512, 16, 1, 256, WINDOW))):
+    for label, (B, S, H, KV, hd, window, causal) in SLICE_FLASH.items():
         q, k, v = attn_inputs(290, B, S, S, H, KV, hd, bf)
-        whole = ops.flash_attention(q, k, v, causal=True, window=window)
+        whole = ops.flash_attention(q, k, v, causal=causal, window=window)
         for mp in SLICE_MP:
             Hl, G, kvs = H // mp, H // KV, KV % mp == 0
             runs = []
@@ -3532,12 +3649,13 @@ def phase_rank_slices() -> dict:
                 ql = q[:, :, h0:h0 + Hl]
                 runs.append((
                     lambda ql=ql, ks=ks, vs=vs: ops.flash_attention(
-                        ql, ks, vs, causal=True, window=window),
+                        ql, ks, vs, causal=causal, window=window),
                     lambda ql=ql, ks=ks, vs=vs: ref.attention_ref(
-                        ql, ks, vs, causal=True, window=window),
+                        ql, ks, vs, causal=causal, window=window),
                     whole[:, :, h0:h0 + Hl]))
             out[f"flash, {label} (B {B}, S {S}, H {H}, KV {KV}, hd {hd}"
-                f"{f', window {window}' if window else ''}) on a model axis"
+                f"{f', window {window}' if window else ''}"
+                f"{'' if causal else ', non-causal'}) on a model axis"
                 f" of {mp}: {Hl} query heads against {ks.shape[2]} KV"] = \
                 slice_vs_whole("flash_attention", runs, TOL[bf])
     B, S, H, N = (WKV_SHAPE[x] for x in "BSHN")
@@ -3625,6 +3743,29 @@ def phase_split_k() -> dict:
                   and bool((w[-past:] == 0).all())
                   and err <= SERVE_MESH_TOL,
                   f"split-K {form} {P} parts: {err!r}")
+    B, T, H, KV, hd = (CROSS_SHAPE[x] for x in ("B", "T", "H", "KV", "hd"))
+    q = torch.randn(B, 1, H, hd, generator=g, device=CUDA)
+    k = torch.randn(B, T, KV, hd, generator=g, device=CUDA)
+    v = torch.randn(B, T, KV, hd, generator=g, device=CUDA)
+    want = attention.decode_attention(q, k, v, T)
+    for P in SPLIT_PARTS:
+        # the parts as DTensor cuts a length over P ranks (torch.chunk)
+        sizes = [c.numel() for c in torch.arange(T).chunk(P)]
+        offsets = np.cumsum([0] + sizes[:-1]).tolist()
+        parts = [attention.decode_partials(q, k[:, o:o + n], v[:, o:o + n],
+                                           T, o)
+                 for o, n in zip(offsets, sizes)]
+        m, l, o = (torch.stack(x) for x in zip(*parts))
+        got = attention.combine_partials(m, l, o).reshape(B, 1, H, hd)
+        err = rel_l2(got, want)
+        out[f"cross {P} parts"] = err
+        print(f"split-K, whisper-medium's cross cache (B {B}, {T} frames, "
+              f"H {H}, KV {KV}, hd {hd}), {P} parts of {sorted(set(sizes))}"
+              f" frames{' (uneven)' if len(set(sizes)) > 1 else ''}, every "
+              f"frame valid: relative L2 against one part {err!r} (tol "
+              f"{SERVE_MESH_TOL!r})")
+        check(bool(torch.isfinite(got).all()) and err <= SERVE_MESH_TOL,
+              f"split-K cross {P} parts: {err!r}")
     return out
 
 
@@ -3672,6 +3813,23 @@ def phase_serve_sharded(cells: list) -> dict:
                 check(r["errs"][0] <= LOGIT_TOL[torch.bfloat16],
                       f"mesh serving {c['label']} {rules}: prefill logits "
                       f"{r['errs'][0]!r}")
+            elif "replay_errs" in r:
+                # the int8 cache: a code that rounds the other way stays
+                # in the cache, so the gate is on the codes and on the
+                # decode from the mesh's own cache (ROADMAP queue 3 ag)
+                print(f"mesh serving, {c['label']}, {c['shape']} mesh "
+                      f"{rules}: {r['flipped']} of {r['codes']} int8 codes "
+                      f"differ from the unsharded cache's, by at most "
+                      f"{r['max_code_diff']} quantum; the mesh cache "
+                      f"gathered and decoded unsharded: relative L2 to the"
+                      f" mesh run's logits by step "
+                      f"{[float(f'{e:.3g}') for e in r['replay_errs']]} "
+                      f"[{device}]")
+                check(r["max_code_diff"] <= 1
+                      and max(r["replay_errs"]) <= SERVE_MESH_TOL,
+                      f"mesh serving {c['label']} {rules}: int8 codes "
+                      f"{r['max_code_diff']} quanta apart, or the replay "
+                      f"{max(r['replay_errs'])!r}")
             else:
                 check(max(r["errs"]) <= SERVE_MESH_TOL
                       and r["tokens_differ"] == 0,
@@ -3729,13 +3887,11 @@ def big_cfg(name: str, n_layers):
     return dataclasses.replace(cfg, n_layers=n_layers)
 
 
-# Whisper's 30-second window: n_audio_ctx frames
-N_FRAMES = 1500
 
 
 def extra_inputs(cfg, B: int, g: torch.Generator) -> dict:
     """A batch's patch or frame embeddings (the frontends are stubs in
-    both packages): seeded normals drawn on the card, in the compute
+    both packages): seeded normals drawn on ``g``'s device, in the compute
     dtype, as ``input_specs`` gives them; {} for a text model."""
     if cfg.is_encdec:
         name, n = "frames", N_FRAMES
@@ -3744,7 +3900,7 @@ def extra_inputs(cfg, B: int, g: torch.Generator) -> dict:
     else:
         return {}
     return {name: torch.randn((B, n, cfg.d_model), generator=g,
-                              device=CUDA).to(getattr(torch, cfg.dtype))}
+                              device=g.device).to(getattr(torch, cfg.dtype))}
 
 
 def pipeline_batches(corpus, B: int, S: int, n: int):
@@ -4152,6 +4308,87 @@ def phase_serve_family(name: str) -> dict:
 
 
 
+# --------------------------------------------------------------------------
+# the dry-run and its roofline on the card (phase 30)
+# --------------------------------------------------------------------------
+
+# smollm-135m's prefill (B 8 x S 512) and decode step (B 8, a cache of
+# 1024 positions) at world size 1: each counted on meta and on the card,
+# then timed on the card
+DRYRUN_CELLS = {"prefill": ShapeConfig("prefill_8x512", "prefill", 512, 8),
+                "decode": ShapeConfig("decode_8x1024", "decode", 1024, 8)}
+# and one production cell on meta, as a user's dry run counts it
+DRYRUN_PRODUCTION = ("granite-8b", "decode_32k", "single")
+
+
+def phase_dryrun() -> dict:
+    """Phase 30: ``dryrun.lower_cell`` for smollm-135m's prefill and decode
+    on the ("data", "model") mesh of this one card, counted on ``meta`` (a
+    fake world of one rank) and on the card: the FLOPs, bytes, kernels
+    and collectives must be the same counts; then the card's median step
+    against ``step_time_bound_s``, which it cannot beat (a share over 1
+    means the count is wrong).  The launch counts are set to 0 just
+    before each card run and read just after.  Then the production cell
+    on meta, with its run_s."""
+    from repro_torch.launch import dryrun
+    smi, out = smi_line(), {}
+    for kind, shape in DRYRUN_CELLS.items():
+        _, meta = dryrun.lower_cell("smollm-135m", shape, (1, 1),
+                                    save=False)
+        ops.reset_launch_counts()
+        _, card = dryrun.lower_cell("smollm-135m", shape, "world",
+                                    save=False, device="cuda")
+        launches = {k: ops.launch_counts[k] for k in MODEL_KERNELS}
+        a, b = meta["counts"], card["counts"]
+        same = {k: a[k] == b[k] for k in ("flops", "bytes",
+                                          "host_copy_bytes", "kernels",
+                                          "collectives")}
+        ops_differ = {op: (a["ops"].get(op), b["ops"].get(op))
+                      for op in sorted(set(a["ops"]) | set(b["ops"]))
+                      if a["ops"].get(op) != b["ops"].get(op)}
+        roof = card["roofline"]
+        med = statistics.median(card["step_s"])
+        bound_s = roof["step_time_bound_s"]
+        print(f"dry-run, smollm-135m {kind} (B {shape.global_batch}, "
+              f"{shape.seq_len} positions) at world size 1: counted on meta"
+              f" and on the card: {roof['hlo_flops_per_chip']!r} flop "
+              f"({roof['flops_tensor_cores']!r} on the tensor cores), "
+              f"{roof['hlo_bytes_upper_bound']!r} bytes, kernels "
+              f"{b['kernels']}; the same: {same}; op calls that differ "
+              f"(meta, card): {ops_differ}; per device args "
+              f"{card['arg_bytes_per_device']} B, peak "
+              f"{card['peak_bytes_per_device']} B (meta "
+              f"{meta['peak_bytes_per_device']} B); roofline compute "
+              f"{roof['compute_s']!r} s, memory {roof['memory_s']!r} s, "
+              f"collective {roof['collective_s']!r} s: step_time_bound_s "
+              f"{bound_s!r} ({roof['dominant']}), roofline_fraction "
+              f"{roof['roofline_fraction']!r}, useful_flop_fraction "
+              f"{roof['useful_flop_fraction']!r}; measured step median "
+              f"{med!r} s of {card['step_s']} (the bound {bound_s / med!r}"
+              f" of it); launches {launches} [{smi}]")
+        check(all(same.values()), f"dry-run {kind}: meta and card counts "
+              f"differ: {same}")
+        check(med >= bound_s, f"dry-run {kind}: the measured step {med!r} s"
+              f" is below its bound {bound_s!r} s: the count is wrong")
+        check(kind != "prefill" or launches["flash_attention"] == 30 * (
+            1 + dryrun.REPEATS), f"dry-run {kind}: launches {launches}")
+        out[kind] = dict(step_s=card["step_s"], median_s=med,
+                         bound_s=bound_s, launches=launches,
+                         roofline_fraction=roof["roofline_fraction"])
+    _, prod = dryrun.lower_cell(*DRYRUN_PRODUCTION, save=False)
+    roof = prod["roofline"]
+    print(f"dry-run, {' x '.join(DRYRUN_PRODUCTION)} on meta ({prod['chips']}"
+          f" ranks of a fake group, rules {prod['rules']}): run_s "
+          f"{prod['run_s']!r}; per device args "
+          f"{prod['arg_bytes_per_device']} B, peak "
+          f"{prod['peak_bytes_per_device']} B; {roof['hlo_flops_per_chip']!r}"
+          f" flop, collectives {roof['collective_by_kind']}; bound "
+          f"{roof['step_time_bound_s']!r} s ({roof['dominant']}), "
+          f"roofline_fraction {roof['roofline_fraction']!r}")
+    out["production"] = dict(run_s=prod["run_s"], roofline=roof)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAILED: torch.cuda.is_available() is False: chip_smoke.py "
@@ -4221,6 +4458,7 @@ def main() -> int:
     family_launches = {name: timed(f"phase {n}", phase_serve_family, name)
                        for n, name in ((23, "internvl2-26b"),
                                        (24, "whisper-medium"))}
+    dry = timed("phase 30", phase_dryrun)
     print(f"device: {smi_line()}")
     flash_paths = {"smollm-135m": launches["flash_attention"],
                    "sharded serve": mesh_serve["launches"]["flash_attention"],
@@ -4228,6 +4466,8 @@ def main() -> int:
                    "qwen3-moe-30b-a3b": moe_launches["flash_attention"],
                    **{k: v["flash_attention"]
                       for k, v in family_launches.items()},
+                   **{f"dry-run {k}": dry[k]["launches"]["flash_attention"]
+                      for k in DRYRUN_CELLS},
                    **prompt_flash}
     kernels = [dict(
         name="flash_attention", route="cuda",

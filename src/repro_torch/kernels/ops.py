@@ -30,6 +30,18 @@ counts ``gather_payload``, which share those kernels.
 The relational wrappers take and return tensors: 64-bit hashes and uint64
 sums travel as int64 tensors that carry the uint64 bits.
 
+A ``meta`` tensor (a dry run counts a full-size step without memory,
+``launch/dryrun.py``) is validated as a CPU or CUDA one is, as far as
+shapes and dtypes go (its values cannot be read, so the index-range and
+order checks are left out), and gets an empty ``meta`` output of the
+kernel's shape and dtype: no launch, no count.  Any other device raises.
+
+While a roofline count runs (``launch/roofline.py``'s ``StepCounter``,
+listed in ``cost_counters``), each wrapper reports its kernel's work from
+``costs.py`` once a call and hides its own ATen ops from the counter (the
+plain version on the CPU, the output's allocation), so a step counts the
+same on every device.
+
 No kernel has a backward yet.  On a CUDA tensor every wrapper refuses,
 with a ``RuntimeError`` before any launch, an input that requires grad
 while grad is enabled (``_refuse_grad``): the kernel's output would carry
@@ -45,12 +57,13 @@ JAX package trains outside its Pallas kernels (ROADMAP.md queue 1, item
 
 from __future__ import annotations
 
+import functools
 import threading
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from . import ref, relational, take_gather
+from . import costs, ref, relational, take_gather
 from .flash_attention import DTYPES, SUPPORTED_HD, flash_attention_cuda
 from .rglru_scan import rglru_scan_cuda
 from .wkv6 import SUPPORTED_N, wkv6_cuda
@@ -75,16 +88,46 @@ def _count(name: str) -> None:
         launch_counts[name] += 1
 
 
-def _on_cuda(*ts: torch.Tensor) -> bool:
-    """True for CUDA tensors, False for CPU ones; raises for a mix or for
-    another device."""
+#: the roofline counts running now (``launch/roofline.py``'s
+#: ``StepCounter``); each has ``hide()``, ``show()`` and ``add_kernel(name,
+#: cost, out)``
+cost_counters: List = []
+
+
+def _costed(name: str, cost):
+    """Decorate a wrapper of kernel ``name``: while a count runs, the
+    wrapper's ATen ops are hidden from it and, once the call returns, its
+    ``cost(*args, **kw)`` (``costs.KernelCost``) and output are added."""
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapped(*args, **kw):
+            if not cost_counters:
+                return fn(*args, **kw)
+            counters = list(cost_counters)
+            for c in counters:
+                c.hide()
+            try:
+                out = fn(*args, **kw)
+            finally:
+                for c in counters:
+                    c.show()
+            for c in counters:
+                c.add_kernel(name, cost(*args, **kw), out)
+            return out
+        return wrapped
+    return deco
+
+
+def _device_type(*ts: torch.Tensor) -> str:
+    """"cuda", "cpu" or "meta", the one device of ``ts``; raises for a mix
+    or for another device."""
     dev = ts[0].device
     if any(t.device != dev for t in ts):
         raise ValueError(f"tensors on different devices: "
                          f"{[str(t.device) for t in ts]}")
-    if dev.type not in ("cpu", "cuda"):
+    if dev.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"no kernel for device {dev}")
-    return dev.type == "cuda"
+    return dev.type
 
 
 def _refuse_grad(name: str, *ts: torch.Tensor) -> None:
@@ -139,6 +182,7 @@ def _check_attention(q, k, v, window: int) -> None:
                              f" the head dim, has strides {t.stride()}")
 
 
+@_costed("flash_attention", costs.flash_attention)
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     """GQA attention forward.  q: (B, S, H, hd); k, v: (B, T, KV, hd) ->
     (B, S, H, hd) in q's dtype.  Causal positions count from 0 for both q
@@ -146,6 +190,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     _check_attention(q, k, v, window)
     if q.device.type == "cpu":
         return ref.attention_ref(q, k, v, causal=causal, window=window)
+    if q.device.type == "meta":
+        return q.new_empty(q.shape)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
     _refuse_grad("flash_attention", q, k, v)
@@ -164,6 +210,7 @@ def _check_f32(name: str, t: torch.Tensor, shape) -> None:
                          f"{t.dtype} {tuple(t.shape)}")
 
 
+@_costed("wkv6", costs.wkv6)
 def wkv6(r, k, v, w, u, state=None):
     """RWKV-6 recurrence per (batch, head) with an N x N float32 state:
     o_t = r_t (diag(u) k_t v_t^T + S), S <- diag(w_t) S + k_t v_t^T.
@@ -185,13 +232,15 @@ def wkv6(r, k, v, w, u, state=None):
     if state is not None:
         _check_f32("wkv6 state", state, (B, H, N, N))
         ts.append(state)
-    cuda = _on_cuda(*ts)
+    kind = _device_type(*ts)
     if min(B, S, H) < 1 or N not in SUPPORTED_N:
         raise ValueError(f"wkv6: empty input or head size {N} not "
                          f"supported (B, S, H, N = {tuple(r.shape)}; "
                          f"supported N: {SUPPORTED_N})")
-    if not cuda:
+    if kind == "cpu":
         return ref.wkv6_ref(r, k, v, w, u, state)
+    if kind == "meta":
+        return r.new_empty(r.shape), w.new_empty((B, H, N, N))
     _refuse_grad("wkv6", *ts)
     out = wkv6_cuda(*(t.contiguous() for t in (r, k, v, w, u)),
                     None if state is None else state.contiguous())
@@ -199,6 +248,7 @@ def wkv6(r, k, v, w, u, state=None):
     return out
 
 
+@_costed("rglru_scan", costs.rglru_scan)
 def rglru_scan(a, b, h0=None):
     """Linear recurrence h_t = a_t * h_{t-1} + b_t per channel, h_{-1} = h0
     (zeros when None).  a, b: float32 (B, S, W); h0: float32 (B, W).  Any
@@ -213,12 +263,14 @@ def rglru_scan(a, b, h0=None):
     if h0 is not None:
         _check_f32("rglru_scan h0", h0, (B, W))
         ts.append(h0)
-    cuda = _on_cuda(*ts)
+    kind = _device_type(*ts)
     if min(B, S, W) < 1 or B > 65535:
         raise ValueError(f"rglru_scan: empty input or B={B} above the "
                          f"kernel's grid limit of 65535 ({tuple(a.shape)})")
-    if not cuda:
+    if kind == "cpu":
         return ref.rglru_ref(a, b, h0)
+    if kind == "meta":
+        return a.new_empty(a.shape), a.new_empty((B, W))
     _refuse_grad("rglru_scan", *ts)
     out = rglru_scan_cuda(a.contiguous(), b.contiguous(),
                           None if h0 is None else h0.contiguous())
@@ -250,22 +302,24 @@ def _check_1d(name: str, t: torch.Tensor, dtypes) -> None:
                         f"(supported: {dtypes})")
 
 
+@_costed("hash_fixed", costs.hash_fixed)
 def hash_fixed(x: torch.Tensor) -> torch.Tensor:
     """uint64 splitmix64 hash of each element's bit pattern (float -0.0
     hashed as +0.0, NaN payloads kept, narrow widths zero-extended), as an
     int64 tensor of the same length carrying the uint64 bits
     (``vkernels.hash_fixed``)."""
     _check_1d("hash_fixed", x, FIXED_DTYPES)
-    cuda = _on_cuda(x)
-    if x.numel() == 0:
-        return torch.empty(0, dtype=torch.int64, device=x.device)
-    if not cuda:
+    kind = _device_type(x)
+    if x.numel() == 0 or kind == "meta":
+        return torch.empty(x.numel(), dtype=torch.int64, device=x.device)
+    if kind == "cpu":
         return ref.hash_fixed_ref(x)
     out = relational.hash_fixed_cuda(x)
     _count("hash_fixed")
     return out
 
 
+@_costed("combine_hashes", costs.combine_hashes)
 def combine_hashes(cols: torch.Tensor, mix_first: bool = False
                    ) -> torch.Tensor:
     """Ordered fold of the rows of an int64 (ncols, n) tensor of 64-bit
@@ -277,10 +331,11 @@ def combine_hashes(cols: torch.Tensor, mix_first: bool = False
         raise ValueError(f"combine_hashes: a contiguous int64 (ncols, n) "
                          f"tensor expected, got {cols.dtype} "
                          f"{tuple(cols.shape)} strides {cols.stride()}")
-    cuda = _on_cuda(cols)
-    if cols.shape[1] == 0:
-        return torch.empty(0, dtype=torch.int64, device=cols.device)
-    if not cuda:
+    kind = _device_type(cols)
+    if cols.shape[1] == 0 or kind == "meta":
+        return torch.empty(cols.shape[1], dtype=torch.int64,
+                           device=cols.device)
+    if kind == "cpu":
         return ref.combine_ref(cols, mix_first)
     out = relational.combine_cuda(cols, mix_first)
     _count("combine_hashes")
@@ -298,15 +353,17 @@ def _fill_word(fill, dtype: torch.dtype) -> int:
     return fill - (1 << 8 * w) if fill >= 1 << (8 * w - 1) else fill
 
 
+@_costed("filter_join_gather", costs.sentinel_gather)
 def _sentinel_gather(src: torch.Tensor, idx: torch.Tensor,
                      fill) -> torch.Tensor:
     _check_1d("sentinel gather src", src, FIXED_DTYPES)
     _check_1d("sentinel gather idx", idx, (torch.int64,))
-    cuda = _on_cuda(src, idx)
+    kind = _device_type(src, idx)
+    cuda = kind == "cuda"
     m, w = idx.numel(), src.element_size()
     fill = _fill_word(fill, src.dtype)
-    if m == 0:
-        return torch.empty(0, dtype=src.dtype, device=src.device)
+    if m == 0 or kind == "meta":
+        return torch.empty(m, dtype=src.dtype, device=src.device)
     lo, hi = torch.stack(torch.aminmax(idx)).tolist()     # one sync
     if lo < -1 or hi >= src.numel():
         raise IndexError(f"sentinel gather: index range [{lo}, {hi}] "
@@ -338,6 +395,7 @@ def gather_payload(values: torch.Tensor, idx: torch.Tensor,
 SEGREDUCE_HOWS = ("count", "sum", "min", "max")
 
 
+@_costed("segreduce", costs.segreduce)
 def _segreduce(hows: Tuple[str, ...], values: Optional[torch.Tensor],
                order: Optional[torch.Tensor], starts: torch.Tensor,
                valid: Optional[torch.Tensor], n: Optional[int]
@@ -371,12 +429,13 @@ def _segreduce(hows: Tuple[str, ...], values: Optional[torch.Tensor],
     if any(m != n for m in lengths):
         raise ValueError(f"{what}: values/valid of length {lengths} != {n} "
                          "rows")
-    cuda = _on_cuda(*ts)
+    kind = _device_type(*ts)
+    cuda = kind == "cuda"
     G = starts.numel()
-    if G == 0:
-        return ({h: torch.empty(0, dtype=torch.int64, device=starts.device)
+    if G == 0 or kind == "meta":
+        return ({h: torch.empty(G, dtype=torch.int64, device=starts.device)
                  for h in hows if h != "count"},
-                torch.empty(0, dtype=torch.int64, device=starts.device))
+                torch.empty(G, dtype=torch.int64, device=starts.device))
     # the kernel's memory safety rests on these: one sync for all of them
     bad = n == 0
     if not bad:
@@ -500,11 +559,14 @@ def _row_gather(what: str, table: torch.Tensor, idx: torch.Tensor, plain,
         raise TypeError(f"{what}: table of {GATHER_DTYPES} and indices of "
                         f"{INDEX_DTYPES} expected, got {table.dtype} and "
                         f"{idx.dtype}")
-    cuda = _on_cuda(table, idx)
+    kind = _device_type(table, idx)
+    cuda = kind == "cuda"
     if cuda:
         _refuse_grad(what, table)
     R, W = table.shape
     M = idx.numel()
+    if kind == "meta":
+        return table.new_empty((M, W))
     if M:
         lo, hi = torch.stack(torch.aminmax(idx)).tolist()     # one sync
         if lo < 0 or hi >= R:
@@ -519,6 +581,7 @@ def _row_gather(what: str, table: torch.Tensor, idx: torch.Tensor, plain,
     return out
 
 
+@_costed("take_rows", costs.row_gather)
 def take_rows(values: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
     """out[i] = values[indices[i]]: (R, W) x (M,) -> (M, W) in values'
     dtype, bits copied (``repro.kernels.ops.take_rows``).  Indices int32
@@ -527,6 +590,8 @@ def take_rows(values: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
                        take_gather.take_rows_cuda)
 
 
+@_costed("dict_decode", lambda codes, dictionary: costs.row_gather(
+    dictionary, codes))
 def dict_decode(codes: torch.Tensor, dictionary: torch.Tensor
                 ) -> torch.Tensor:
     """out[i] = dictionary[codes[i]]: (M,) x (R, W) -> (M, W), bits copied

@@ -55,10 +55,14 @@ def make_mesh(shape: Tuple[int, ...], names: Tuple[str, ...],
     return init_device_mesh(dev.type, shape, mesh_dim_names=names)
 
 
+#: the production meshes' shapes and axis names, by name
+PRODUCTION = {"single": ((16, 16), ("data", "model")),
+              "multi": ((2, 16, 16), ("pod", "data", "model"))}
+
+
 def make_production_mesh(*, multi_pod: bool = False, device="cuda"):
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return make_mesh(shape, axes, device)
+    return make_mesh(*PRODUCTION["multi" if multi_pod else "single"],
+                     device)
 
 
 def mesh_for_shape(devices: int, *, model_parallel: int = 0

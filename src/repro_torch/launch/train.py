@@ -7,15 +7,16 @@ Zerrow-backed checkpoints, with fleet monitoring hooks.
         --steps 12
 
 The same flags and printed lines as the JAX package's
-``launch/train.py``.  Weights are random, drawn on the training device by
-a ``torch.Generator`` of that device seeded with 0.  The corpus is made
-under ``$TMPDIR/zerrow-corpus`` when that directory is empty.  Without
-``--device cpu`` it runs on CUDA, and raises when no card is present;
-the pipeline's corpus join runs its relational kernels on the same
-device.  The vlm and enc-dec models (internvl2-26b, whisper-medium)
-raise ``ValueError``: their batches need patch or frame embeddings that
-the text pipeline does not make (ROADMAP.md queue 3, item s).  A step's
-printed time ends when its loss reaches the host.
+``launch/train.py``, and ``--ckpt-every`` (its ``train_loop``'s
+``ckpt_every``, 50 by default).  Weights are random, drawn on the
+training device by a ``torch.Generator`` of that device seeded with 0.
+The corpus is made under ``$TMPDIR/zerrow-corpus`` when that directory
+is empty.  Without ``--device cpu`` it runs on CUDA, and raises when no
+card is present; the pipeline's corpus join runs its relational kernels
+on the same device.  The vlm and enc-dec models (internvl2-26b,
+whisper-medium) raise ``ValueError``: their batches need patch or frame
+embeddings that the text pipeline does not make (ROADMAP.md queue 3,
+item s).  A step's printed time ends when its loss reaches the host.
 """
 
 from __future__ import annotations
@@ -123,6 +124,8 @@ def main(argv=None):
     ap.add_argument("--smoke", action="store_true",
                     help="reduced same-family config (CPU-friendly)")
     ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=50,
+                    help="snapshot every this many steps")
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--data-workers", type=int, default=1,
@@ -148,7 +151,8 @@ def main(argv=None):
     a = ap.parse_args(argv)
     return train_loop(a.arch, steps=a.steps, batch=a.batch,
                       seq_len=a.seq_len, smoke=a.smoke, ckpt_dir=a.ckpt_dir,
-                      resume=a.resume, lr=a.lr, data_workers=a.data_workers,
+                      ckpt_every=a.ckpt_every, resume=a.resume, lr=a.lr,
+                      data_workers=a.data_workers,
                       workers_mode=a.workers_mode,
                       reader_threads=a.reader_threads,
                       cache_root=a.cache_root, device=a.device)

@@ -9,7 +9,7 @@ from typing import Dict, Tuple
 import torch
 
 from ..configs.base import ArchConfig, ShapeConfig
-from .encdec import EncDecLM
+from .encdec import CROSS_AXES, EncDecLM
 from .layers import Spec
 from .lm import DecoderLM
 
@@ -90,7 +90,7 @@ class ModelAPI:
         ``kv_seq`` is sharded over "model" (``launch/dryrun.py``'s
         ``_lower_decode``)."""
         base = self.model.cache_axes(stacked)
-        kv = ("batch", "kv_seq", "kv_heads", None)
+        kv = CROSS_AXES
         if not self.cfg.is_encdec:
             return base
         if stacked:

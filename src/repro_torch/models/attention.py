@@ -2,7 +2,9 @@
 and decode in plain PyTorch (decode over a preallocated KV cache updated
 in place).  Cross-attention (``kv_override``, the enc-dec decoder's) runs
 ``chunked_attention`` or ``decode_attention`` in every mode, as the JAX
-package never sends it to its kernel.
+package never sends it to its kernel; under a mesh a prefill's
+cross-attention over the length-sharded cross (k, v) takes the split-K
+below, as decode's does.
 
 ``chunked_attention`` is the JAX package's chunked online-softmax path
 (its default ``attention_impl="xla"``) in plain PyTorch.  Train mode runs
@@ -37,11 +39,9 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ..kernels import ops
 from ..sharding.partition import (_contiguous_strides, constrain,
-                                  current_mesh, current_rules,
-                                  logical_to_spec, per_shard,
-                                  replicated_like, shard_range,
-                                  spec_to_placements)
-from .layers import apply_rope, dense_init_
+                                  current_mesh, per_shard, pin_grad,
+                                  replicated_like, shard_range)
+from .layers import apply_rope, dense_init_, split_heads
 
 NEG_INF = -1e30
 # the attention core's layout under a mesh: sharded over the batch alone
@@ -138,7 +138,8 @@ def decode_attention(q, k_cache, v_cache, cache_len):
     int, or a (B,) tensor).  The dots run in the cache dtype; only the
     small score tensor is upcast for the softmax.  A cache that is a
     DTensor (under a mesh) takes the split-K path, ``_decode_on_mesh``,
-    with an int ``cache_len``.
+    with an int ``cache_len``; there q may hold Sq queries (B, Sq, H, hd),
+    each against every valid position (a prefill's cross-attention).
     """
     if isinstance(k_cache, DTensor):
         return _decode_on_mesh(q, k_cache, v_cache, cache_len)
@@ -160,42 +161,44 @@ def decode_attention(q, k_cache, v_cache, cache_len):
 
 
 def decode_partials(q, k_part, v_part, cache_len, offset: int = 0):
-    """One part of a split-K decode: q (B, 1, H, hd) against the cache
-    positions offset .. offset + T' - 1, k_part and v_part (B, T', KV, hd).
-    A position is valid where it lies below ``cache_len`` (an int, or a
-    (B,) tensor).  Returns float32 (m, l, o): the row max of the scaled
-    scores (B, KV, G), the sum of exp(s - m) over the part (B, KV, G) and
-    the weighted sum of V (B, KV, G, hd), the probabilities in the cache
+    """One part of a split-K decode: q (B, Sq, H, hd) against the cache
+    positions offset .. offset + T' - 1, k_part and v_part (B, T', KV, hd),
+    every query against every valid position (no causal mask: a decode
+    step's one query, or the Sq queries of a cross-attention).  A position
+    is valid where it lies below ``cache_len`` (an int, or a (B,) tensor).
+    Returns float32 (m, l, o): the row max of the scaled scores (B, Sq,
+    KV, G), the sum of exp(s - m) over the part (B, Sq, KV, G) and the
+    weighted sum of V (B, Sq, KV, G, hd), the probabilities in the cache
     dtype as ``decode_attention`` takes them.
 
     A part whose positions all lie at or past ``cache_len`` has every
     score at ``NEG_INF`` (finite): its m is NEG_INF and its l its own
     length, and ``combine_partials`` gives it the weight exp(NEG_INF - M),
     exactly 0, beside any part with a valid position."""
-    B, _, H, hd = q.shape
+    B, Sq, H, hd = q.shape
     T, KV = k_part.shape[1], k_part.shape[2]
     G = H // KV
-    qg = q.reshape(B, KV, G, hd)
-    s = torch.einsum("bkgh,btkh->bkgt", qg.to(k_part.dtype), k_part)
+    qg = q.reshape(B, Sq, KV, G, hd)
+    s = torch.einsum("bskgh,btkh->bskgt", qg.to(k_part.dtype), k_part)
     s = s.float() * hd ** -0.5
     pos = offset + torch.arange(T, device=q.device)
     limit = cache_len if isinstance(cache_len, int) \
         else cache_len.reshape(-1, 1)
     valid = pos[None, :] < limit
-    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    s = torch.where(valid[:, None, None, None, :], s, NEG_INF)
     m = s.amax(dim=-1)
     p = torch.exp(s - m[..., None])
-    o = torch.einsum("bkgt,btkh->bkgh", p.to(v_part.dtype), v_part)
+    o = torch.einsum("bskgt,btkh->bskgh", p.to(v_part.dtype), v_part)
     return m, p.sum(dim=-1), o.float()
 
 
 def combine_partials(m, l, o):
     """The log-sum-exp combine of a split-K decode's parts, stacked on a
-    leading dim (``decode_partials``' m, l (P, B, KV, G) and o (P, B, KV,
-    G, hd)): each part weighted by exp(m_p - M), M the max over the parts.
-    Returns the attention output (B, KV, G, hd) in float32; the parts are
-    summed in their order, so every rank that combines the same parts gets
-    the same bits."""
+    leading dim (``decode_partials``' m, l (P, B, Sq, KV, G) and o (P, B,
+    Sq, KV, G, hd)): each part weighted by exp(m_p - M), M the max over the
+    parts.  Returns the attention output (B, Sq, KV, G, hd) in float32; the
+    parts are summed in their order, so every rank that combines the same
+    parts gets the same bits."""
     w = torch.exp(m - m.amax(dim=0))
     return (w[..., None] * o).sum(dim=0) / (w * l).sum(dim=0)[..., None]
 
@@ -205,9 +208,13 @@ def _decode_on_mesh(q, k_cache, v_cache, cache_len: int):
     scores its own cache positions (its batch rows and KV heads, and q's
     heads of those KV heads) with validity in global positions, the
     parts (m, l, o) are gathered over the mesh dims that split the length,
-    and every rank combines them (``combine_partials``).  Returns (B, 1,
-    H, hd) placed as the cache's batch rows and KV heads, all of the
-    length dims replicated."""
+    and every rank combines them (``combine_partials``).  q (B, Sq, H, hd)
+    holds one decode query or the queries of a cross-attention; a rank's
+    offset and length are its shard's own (``shard_range``), so an uneven
+    split of the length (1500 frames in 8 parts) masks and combines in
+    global positions as an even one does.  Returns (B, Sq, H, hd) placed as
+    the cache's batch rows and KV heads, all of the length dims
+    replicated."""
     mesh = k_cache.device_mesh
     pl = tuple(k_cache.placements)
     length = [i for i, p in enumerate(pl) if isinstance(p, Shard)
@@ -337,22 +344,6 @@ def dequant_kv(q, scale, dtype):
     return (q.float() * scale[..., None]).to(dtype)
 
 
-def _split_heads(t, n: int, axis: str):
-    """t (B, S, n * hd) viewed as (B, S, n, hd).  Under a mesh the last dim
-    is first placed as its n heads are under logical ``axis`` (whole heads
-    on each rank, or all of them where n does not divide the mesh axis):
-    DTensor (torch 2.11) may leave a product's output sharded across a
-    head, which no view can split."""
-    B, S, f = t.shape
-    if isinstance(t, DTensor):
-        mesh = t.device_mesh
-        pl = spec_to_placements(logical_to_spec(
-            ("batch", "seq", axis), mesh, current_rules(), (B, S, n)), mesh)
-        if tuple(t.placements) != pl:
-            t = t.redistribute(mesh, pl)
-    return t.view(B, S, n, f // n)
-
-
 def attn_apply(p, x, *, cfg, mode: str, cache: Optional[Dict] = None,
                pos=None, window: int = 0, causal: bool = True,
                kv_override: Optional[Tuple] = None):
@@ -368,16 +359,23 @@ def attn_apply(p, x, *, cfg, mode: str, cache: Optional[Dict] = None,
     """
     B, S, d = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = _split_heads(x @ p.wq.reshape(d, H * hd).to(x.dtype), H, "heads")
+    q = split_heads(x @ pin_grad(p.wq.reshape(d, H * hd)).to(x.dtype), H,
+                     "heads")
     if kv_override is not None:
         k, v = kv_override
-        out = decode_attention(q, k, v, k.shape[1]) if mode == "decode" \
-            else chunked_attention(q, k, v, causal=False,
-                                   chunk=cfg.attn_chunk)
-        return out.reshape(B, S, H * hd) @ p.wo.to(x.dtype), cache
-    k = _split_heads(x @ p.wk.reshape(d, KV * hd).to(x.dtype), KV,
+        if mode == "decode" or (mode == "prefill"
+                                and isinstance(k, DTensor)):
+            # under a mesh the cross (k, v) is the length-sharded cache of
+            # ``cache_axes``: prefill's queries take the same split-K as
+            # decode's one, and nothing of the cross is gathered
+            out = decode_attention(q, k, v, k.shape[1])
+        else:
+            out = chunked_attention(q, k, v, causal=False,
+                                    chunk=cfg.attn_chunk)
+        return pin_grad(out.reshape(B, S, H * hd)) @ p.wo.to(x.dtype), cache
+    k = split_heads(x @ pin_grad(p.wk.reshape(d, KV * hd)).to(x.dtype), KV,
                      "kv_heads")
-    v = _split_heads(x @ p.wv.reshape(d, KV * hd).to(x.dtype), KV,
+    v = split_heads(x @ pin_grad(p.wv.reshape(d, KV * hd)).to(x.dtype), KV,
                      "kv_heads")
     if pos is None:
         pos = replicated_like(torch.arange(S, device=x.device)[None, :], x)
@@ -423,7 +421,7 @@ def attn_apply(p, x, *, cfg, mode: str, cache: Optional[Dict] = None,
         cache["len"] += 1
     else:
         raise ValueError(mode)
-    out = out.reshape(B, S, H * hd)
+    out = pin_grad(out.reshape(B, S, H * hd))
     return out @ p.wo.to(x.dtype), cache
 
 

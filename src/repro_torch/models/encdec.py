@@ -14,7 +14,10 @@ serves (``prefill``: the kernel for CUDA tensors), and through
 LM's attention; the JAX package runs its encoder in train mode in both.
 Cross-attention is plain PyTorch in every mode, and a prefill's cache is
 a pair: the decoder's self-attention caches, updated in place, and the
-cross (k, v) of every decoder layer, computed once per request.
+cross (k, v) of every decoder layer, computed once per request.  Under a
+mesh the encoder's flash runs on each rank's heads, and the cross is
+placed by ``CROSS_AXES`` (the serve rules shard its frames over "model"),
+so the decoder attends to it by a split-K in prefill as in decode.
 """
 
 from __future__ import annotations
@@ -29,12 +32,15 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
 from ..configs.base import ArchConfig
-from ..sharding.partition import constrain, replicated_like, serving
+from ..sharding.partition import (constrain, reduce_partial,
+                                  replicated_like, serving)
 from .attention import Attention, attn_axes
 from .layers import MLP, RMSNorm, Spec, mlp_axes, normal_, rms_norm, \
     softmax_xent, stacked_axes, tied_table, trunc_normal_, zero_caches
 
 N_DEC_POS = 4096          # learned decoder positions, taken modulo this
+#: logical axes of each decoder layer's cross k and v in a serve cache
+CROSS_AXES = ("batch", "kv_seq", "kv_heads", None)
 
 
 def sinusoid_pos(S: int, d: int) -> np.ndarray:
@@ -208,8 +214,12 @@ class EncDecLM(nn.Module):
         ids = constrain(tokens, (None,) * tokens.dim())
         x = F.embedding(ids, tied_table(self.embed)).to(self.cdtype)
         # the lookup's masked partial sum is resolved before the add: on
-        # torch 2.11 its mask buffer conflicts with the next microbatch's
-        x = constrain(x, ("batch", "seq", None))
+        # torch 2.11 its mask buffer conflicts with the next microbatch's;
+        # and reduced in place first, as ``DecoderLM.embed_inputs`` does:
+        # with the table replicated over "data" (SERVE_RULES) DTensor
+        # shards the batch before it reduces, and the mask of the whole
+        # batch no longer fits (torch 2.13)
+        x = constrain(reduce_partial(x), ("batch", "seq", None))
         if positions is None:
             positions = replicated_like(
                 torch.arange(S, device=x.device)[None, :], x)
@@ -266,7 +276,12 @@ class EncDecLM(nn.Module):
         S')} (a BOS): returns (last_logits (B,1,V), (caches, cross))."""
         if "frames" not in batch:
             raise ValueError(f"{self.cfg.name}: prefill needs 'frames'")
-        cross = self.cross_kv(self.encode(batch["frames"], "prefill"))
+        # placed as ``ModelAPI.cache_axes`` names the cross: under the
+        # serve rules the frames' length over "model", so the decoder's
+        # cross-attention is a split-K in prefill and decode alike
+        cross = [tuple(constrain(t, CROSS_AXES) for t in kv)
+                 for kv in self.cross_kv(self.encode(batch["frames"],
+                                                     "prefill"))]
         tokens = batch["tokens"]
         caches = self.init_cache(tokens.shape[0], cache_len)
         logits, caches = self._decoder(tokens, "prefill", cross, caches)

@@ -18,10 +18,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from ..sharding.partition import (NamedSharding, constrain, current_mesh,
-                                  current_rules, logical_to_spec,
-                                  replicated_like, zeros_placed)
+                                  current_rules, logical_to_spec, pin_grad,
+                                  replicated_like, spec_to_placements,
+                                  zeros_placed)
 
 
 class Spec(tuple):
@@ -119,6 +121,25 @@ def layer_norm(x, w, b, eps: float):
     var = x.var(dim=-1, unbiased=False, keepdim=True)
     y = (x - mu) * torch.rsqrt(var + eps)
     return (y * w.float() + b.float()).to(dt)
+
+
+def split_heads(t, n: int, axis: str):
+    """t (B, S, n * hd) viewed as (B, S, n, hd).  Under a mesh the last dim
+    is first placed as its n heads are under logical ``axis`` (whole heads
+    on each rank, or all of them where n does not divide the mesh axis),
+    and so is its grad: DTensor (torch 2.11) may leave a product's output
+    (or, torch 2.13, its grad) sharded across a head, which no view can
+    split."""
+    B, S, f = t.shape
+    if isinstance(t, DTensor):
+        mesh = t.device_mesh
+        pl = spec_to_placements(logical_to_spec(
+            ("batch", "seq", axis), mesh, current_rules(), (B, S, n)), mesh)
+        if tuple(t.placements) != pl:
+            t = t.redistribute(mesh, pl)
+        # and its grad, which DTensor may also shard across a head
+        t = pin_grad(t)
+    return t.view(B, S, n, f // n)
 
 
 # --------------------------------------------------------------------------

@@ -271,6 +271,11 @@ class DecoderLM(nn.Module):
         x = constrain(reduce_partial(x), ("batch", "seq", None))
         if self.vision_proj is not None and patches is not None:
             pv = patches.to(self.cdtype) @ self.vision_proj.to(self.cdtype)
+            # under a mesh the product comes sharded as vision_proj is
+            # (("fsdp", "tensor"): its columns over "model", a partial sum
+            # over "data" under SERVE_BIG_RULES): both halves are brought
+            # to the activations' placements before the cat
+            pv = constrain(reduce_partial(pv), ("batch", "seq", None))
             x = torch.cat([pv, x], dim=1)
         return constrain(x, ("batch", "seq", None))
 

@@ -29,8 +29,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels import ops
-from ..sharding.partition import constrain, per_shard
-from .layers import RMSNorm, dense_init_, normal_, uniform_
+from ..sharding.partition import constrain, per_shard, pin_grad
+from .layers import (RMSNorm, dense_init_, normal_, split_heads,
+                     uniform_)
 
 LORA_R = 64
 TRAIN_CHUNK = 16
@@ -120,15 +121,17 @@ def rwkv_time_apply(p, x, cfg, mode: str, cache: Optional[Dict] = None):
     prev, new_shift = token_shift(x, cache["shift"] if cache else None)
     mu = p.mu.to(x.dtype)
     xr, xk, xv, xw, xg = (x + mu[i] * (prev - x) for i in range(5))
-    r = (xr @ p.wr.to(x.dtype)).view(B, S, H, N)
-    k = (xk @ p.wk.to(x.dtype)).view(B, S, H, N)
-    v = (xv @ p.wv.to(x.dtype)).view(B, S, H, N)
+    # under a mesh each flat (B, S, d) is placed by whole heads first:
+    # rwkv6-3b's 40 heads of 64 do not divide a model axis of 16, where
+    # the products' d-sharded outputs would split a head
+    r, k, v = (split_heads(a @ w.to(x.dtype), H, "tensor")
+               for a, w in ((xr, p.wr), (xk, p.wk), (xv, p.wv)))
     g = F.silu(xg @ p.wg.to(x.dtype))
     # data-dependent decay; the clip keeps log w >= -4 (decay floor e^-4),
     # as the JAX model does for its chunked form
     dw = torch.tanh(xw @ p.w_lora_a.to(x.dtype)) @ p.w_lora_b.to(x.dtype)
-    w = torch.exp(-torch.exp(torch.clamp(p.w0 + dw.float(), -20.0,
-                                         1.3862))).view(B, S, H, N)
+    w = split_heads(torch.exp(-torch.exp(torch.clamp(
+        p.w0 + dw.float(), -20.0, 1.3862))), H, "tensor")
     state = cache["state"] if cache else None
     # under a mesh every mode runs the recurrence per batch row and head
     # on each rank's shards; the state cache is placed so already
@@ -148,7 +151,9 @@ def rwkv_time_apply(p, x, cfg, mode: str, cache: Optional[Dict] = None):
     # simplified group norm over each head
     oh = out.float()
     oh = oh * torch.rsqrt(oh.square().mean(dim=-1, keepdim=True) + 1e-5)
-    out = (oh.reshape(B, S, d) * p.ln_w).to(x.dtype)
+    # the merged heads' grad kept on their placements, as ``split_heads``
+    # keeps the split ones'
+    out = (pin_grad(oh.reshape(B, S, d)) * p.ln_w).to(x.dtype)
     out = (out * g) @ p.wo.to(x.dtype)
     if cache is not None:
         cache["shift"].copy_(new_shift)

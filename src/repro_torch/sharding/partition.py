@@ -41,6 +41,8 @@ from typing import Any, Dict, List, Mapping, Optional, Tuple
 import torch
 from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
                                       distribute_tensor)
+from torch.distributed.tensor._utils import \
+    compute_local_shape_and_global_offset
 
 
 @dataclass(frozen=True)
@@ -312,6 +314,17 @@ class _GradTo(torch.autograd.Function):
         return g, None
 
 
+def pin_grad(x):
+    """``x``, its grad put on ``x``'s own placements in the backward pass
+    (a no-op outside a mesh or without autograd): for a weight flattened
+    by a view, whose grad DTensor may otherwise shard across a head, which
+    the view's backward cannot split (granite-8b's 8 KV heads on a model
+    axis of 16, torch 2.13)."""
+    if isinstance(x, DTensor) and x.requires_grad:
+        return _GradTo.apply(x, tuple(x.placements))
+    return x
+
+
 def constrain_tree(tree, axes_tree, rules: Optional[ShardingRules] = None):
     """``constrain`` every leaf of ``tree`` with the matching logical axes
     from ``axes_tree`` (same structure, tuple-of-names leaves)."""
@@ -400,24 +413,18 @@ def shard_range(t: torch.Tensor, dim: int) -> Tuple[int, int]:
     """(global offset, length) of this rank's shard of ``t`` along ``dim``:
     (0, the whole length) for a plain tensor or a dim no mesh dim splits.
     Where several mesh dims split ``dim`` the first is the major one, as
-    DTensor nests them.  A function run by ``per_shard`` on a shard of a
-    length-sharded KV cache takes this offset to mask and write in global
-    positions."""
+    DTensor nests them.  An uneven split (1500 frames in 8 parts) gives
+    each rank the real length and offset of its shard, as DTensor cuts
+    it (``torch.chunk``'s parts: 188 a rank, 184 on the last).  A
+    function run by ``per_shard`` on a shard of a length-sharded KV cache
+    takes this offset to mask and write in global positions."""
     n = t.shape[dim]
     if not isinstance(t, DTensor):
         return 0, n
     dim %= t.dim()
-    mesh = t.device_mesh
-    coord = mesh.get_coordinate()
-    idx, parts = 0, 1
-    for i, p in enumerate(t.placements):
-        if isinstance(p, Shard) and p.dim % t.dim() == dim:
-            idx = idx * mesh.size(i) + coord[i]
-            parts *= mesh.size(i)
-    if n % parts:
-        raise ValueError(f"shard_range: dim {dim} of {tuple(t.shape)} is "
-                         f"split {parts} ways unevenly")
-    return idx * (n // parts), n // parts
+    local, offset = compute_local_shape_and_global_offset(
+        t.shape, t.device_mesh, t.placements)
+    return offset[dim], local[dim]
 
 
 def zeros_placed(shape, sharding: NamedSharding, **kw) -> DTensor:
@@ -425,10 +432,7 @@ def zeros_placed(shape, sharding: NamedSharding, **kw) -> DTensor:
     its shards: each rank allocates its own shard alone (``kw``: dtype,
     device)."""
     mesh, placements = sharding.mesh, sharding.placements
-    local = list(shape)
-    for i, p in enumerate(placements):
-        if isinstance(p, Shard):
-            local[p.dim] //= mesh.size(i)
+    local, _ = compute_local_shape_and_global_offset(shape, mesh, placements)
     return DTensor.from_local(torch.zeros(local, **kw), mesh,
                               list(placements), run_check=False,
                               shape=torch.Size(shape),

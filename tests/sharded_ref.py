@@ -293,6 +293,7 @@ for run in spec["runs"]:
     data = np.load(base + ".in.npz")
     params = nest({k[2:]: data[k] for k in data.files if k.startswith("p/")})
     tokens = data["tokens"]
+    extra = {k[2:]: data[k] for k in data.files if k.startswith("x/")}
     B, S = tokens.shape
     T, steps = run["cache"], run["steps"]
     # _lower_prefill / _lower_decode as they are, fed float32 weights and
@@ -301,8 +302,13 @@ for run in spec["runs"]:
     dryrun._serve_param_specs = lambda api: f32
     specs = api.input_specs
     api.input_specs = lambda shape: (
-        {"tokens": jax.ShapeDtypeStruct((B, S), jnp.int32)}
+        {"tokens": jax.ShapeDtypeStruct((B, S), jnp.int32),
+         **{k: jax.ShapeDtypeStruct(v.shape, v.dtype)
+            for k, v in extra.items()}}
         if shape.kind == "prefill" else specs(shape))
+    # decode continues after the patches and the text (a vlm's patches
+    # take the first positions)
+    start = S + (cfg.vision_tokens if "patches" in extra else 0)
     record.clear()
     with partition.use_mesh(mesh, rules):
         pre = dryrun._lower_prefill(
@@ -311,12 +317,13 @@ for run in spec["runs"]:
         dec = dryrun._lower_decode(
             api, configs.ShapeConfig("d", "decode", T, B), mesh,
             rules).compile()
-        logits, caches = pre(*jax.device_put((params, {"tokens": tokens}),
-                                             pre.input_shardings[0]))
+        logits, caches = pre(*jax.device_put(
+            (params, {"tokens": tokens, **extra}), pre.input_shardings[0]))
         out = [np.asarray(logits)]
         for i in range(steps):
             tok = out[-1][:, -1].argmax(-1).astype(np.int32)[:, None]
-            b = {"tokens": tok, "positions": np.full((B, 1), S + i, np.int32)}
+            b = {"tokens": tok,
+                 "positions": np.full((B, 1), start + i, np.int32)}
             logits, caches = dec(*jax.device_put((params, b, caches),
                                                  dec.input_shardings[0]))
             out.append(np.asarray(logits))
@@ -336,7 +343,8 @@ class JaxMeshServe:
     """The JAX package's serving under a mesh, in a subprocess of
     ``n_devices`` host devices: each run {"name", "arch", "cfg" (smoke
     overrides), "mesh": (shape, names), "rules", "params" (the JAX
-    layout, numpy), "tokens" (B, S), "cache", "steps"} runs the jits that
+    layout, numpy), "tokens" (B, S), "cache", "steps"[, "extra": patches
+    or frames, numpy]} runs the jits that
     ``dryrun._lower_prefill`` and ``_lower_decode`` build, with their
     in_shardings, fed the float32 weights: the prompt, then greedy decode
     steps.  ``results()`` waits and returns {name: (each step's logits,
@@ -347,7 +355,8 @@ class JaxMeshServe:
         for r in runs:
             np.savez(f"{path}.{_file(r['name'])}.in.npz", tokens=r["tokens"],
                      **{f"p/{k}": v for k, v in
-                        flatten_paths(r["params"]).items()})
+                        flatten_paths(r["params"]).items()},
+                     **{f"x/{k}": v for k, v in r.get("extra", {}).items()})
         with open(path + ".json", "w") as f:
             json.dump({"runs": [dict(
                 name=r["name"], file=_file(r["name"]), arch=r["arch"],

@@ -120,10 +120,25 @@ def test_cpu_calls_leave_the_launch_count_at_zero():
 
 
 def test_other_devices_get_no_fallback():
-    q, k, v = (torch.empty(s, device="meta")
-               for s in ((1, 16, 2, 32), (1, 16, 2, 32), (1, 16, 2, 32)))
-    with pytest.raises(ValueError, match="no kernel for device meta"):
-        ops.flash_attention(q, k, v)
+    """A device with no kernel raises (a fake ``xpu`` tensor); a ``meta``
+    one (a dry run's) is validated and gets an empty meta output of the
+    kernel's shape and dtype, and counts no launch."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    shapes = ((1, 16, 2, 32), (1, 16, 2, 32), (1, 16, 2, 32))
+    with FakeTensorMode():
+        q, k, v = (torch.empty(s, device="xpu") for s in shapes)
+        with pytest.raises(ValueError, match="no kernel for device xpu"):
+            ops.flash_attention(q, k, v)
+    q, k, v = (torch.empty(s, device="meta", dtype=torch.bfloat16)
+               for s in shapes)
+    ops.reset_launch_counts()
+    out = ops.flash_attention(q, k, v)
+    assert out.device.type == "meta" and out.shape == q.shape \
+        and out.dtype == torch.bfloat16
+    assert set(ops.launch_counts.values()) == {0}
+    with pytest.raises(ValueError, match="head dim"):
+        ops.flash_attention(*(torch.empty(1, 4, 2, 24, device="meta")
+                              for _ in range(3)))
 
 
 def test_build_fails_loudly_without_nvcc(monkeypatch):

@@ -204,10 +204,13 @@ def test_float_reducers_stay_on_vkernels(on_cpu, how, monkeypatch):
 @pytest.mark.parametrize("bad", ["float_values", "starts_not_0",
                                  "starts_not_rising", "starts_past_n",
                                  "order_out_of_range", "short_valid",
-                                 "hash_2d", "idx_int32", "meta_device"])
+                                 "hash_2d", "idx_int32", "meta_device",
+                                 "other_device"])
 def test_wrappers_reject_what_the_kernels_do_not_take(bad):
     """The same checks on every device, so the CPU raises wherever the
-    kernel would refuse or read out of bounds."""
+    kernel would refuse or read out of bounds; a meta tensor (a dry run's)
+    gets the same shape and dtype checks, and a device with no kernel
+    raises."""
     order, starts = torch.arange(6), torch.tensor([0, 2, 5])
     vals, valid = torch.arange(6), None
     if bad == "hash_2d":
@@ -217,7 +220,14 @@ def test_wrappers_reject_what_the_kernels_do_not_take(bad):
             torch.arange(3), torch.zeros(2, dtype=torch.int32))
     elif bad == "meta_device":
         call = lambda: kops.hash_fixed(                            # noqa
-            torch.empty(3, dtype=torch.int64, device="meta"))
+            torch.empty((2, 3), dtype=torch.int64, device="meta"))
+    elif bad == "other_device":
+        from torch._subclasses.fake_tensor import FakeTensorMode
+
+        def call():
+            with FakeTensorMode():
+                kops.hash_fixed(torch.empty(3, dtype=torch.int64,
+                                            device="xpu"))
     else:
         if bad == "float_values":
             vals = vals.double()

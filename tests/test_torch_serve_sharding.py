@@ -177,10 +177,11 @@ def test_combine_partials_matches_decode_attention(P, cache_len):
     got, m = split_k(q, k, v, cl, P)
     assert torch.isfinite(got).all()
     assert rel(got, want) <= SPLIT_TOL
-    # a part wholly past cache_len has the max NEG_INF and weight 0
+    # a part wholly past cache_len has the max NEG_INF and weight 0 (m
+    # (P, B, 1, KV, G): one query)
     T, n = k.shape[1], k.shape[1] // P
-    limit = cl.reshape(-1, 1, 1) if isinstance(cl, torch.Tensor) else cl
-    past = torch.arange(0, T, n).reshape(P, 1, 1, 1) >= torch.as_tensor(
+    limit = cl.reshape(-1, 1, 1, 1) if isinstance(cl, torch.Tensor) else cl
+    past = torch.arange(0, T, n).reshape(P, 1, 1, 1, 1) >= torch.as_tensor(
         limit)
     w = torch.exp(m - m.amax(dim=0))
     assert torch.equal(w[past.expand_as(m)],
@@ -298,3 +299,65 @@ def test_each_rank_takes_the_kv_heads_of_its_query_heads(H, KV, mp):
         np.testing.assert_allclose(out.numpy(),
                                    whole[:, :, h0:h0 + Hl].numpy(),
                                    rtol=1e-6, atol=1e-6)
+
+
+# -- an uneven split of the length (1500 frames in 8 parts) -------------------
+
+FRAMES, PARTS = 1500, 8
+
+
+def chunk_ranges(T: int, P: int):
+    """(offset, length) of each of DTensor's P shards of T positions, as
+    ``torch.chunk`` cuts them: 188 x 7 and 184 for 1500 in 8."""
+    out, off = [], 0
+    for c in torch.arange(T).chunk(P):
+        out.append((off, c.numel()))
+        off += c.numel()
+    return out
+
+
+@pytest.mark.parametrize("Sq", [1, 3])
+def test_split_k_over_an_uneven_cross_cache(Sq):
+    """whisper's cross cache of 1500 frames split as DTensor splits it over
+    a model axis of 8, each part scored from its own offset and length:
+    one decode query (Sq 1) or a prefill's queries (Sq 3) against every
+    frame, within SPLIT_TOL of one part and of ``chunked_attention``."""
+    g = torch.Generator().manual_seed(28)
+    B, H, KV, hd = 2, 4, 2, 16
+    q = torch.randn(B, Sq, H, hd, generator=g) * 2
+    k = torch.randn(B, FRAMES, KV, hd, generator=g) * 2
+    v = torch.randn(B, FRAMES, KV, hd, generator=g)
+    ranges = chunk_ranges(FRAMES, PARTS)
+    assert [n for _, n in ranges] == [188] * 7 + [184]
+
+    def split(rs):
+        parts = [attention.decode_partials(q, k[:, o:o + n], v[:, o:o + n],
+                                           FRAMES, o) for o, n in rs]
+        m, l, o = (torch.stack(x) for x in zip(*parts))
+        return attention.combine_partials(m, l, o).reshape(B, Sq, H, hd)
+    got, one = split(ranges), split([(0, FRAMES)])
+    assert torch.isfinite(got).all()
+    assert rel(got, one) <= SPLIT_TOL
+    assert rel(got, attention.chunked_attention(q, k, v, causal=False)) \
+        <= SPLIT_TOL
+
+
+def test_shard_range_gives_each_rank_its_uneven_shard():
+    """On each rank of a fake world of 8, a cross cache of 1500 frames
+    sharded over "model" (and ``zeros_placed``'s) holds the rank's own
+    length at its own offset, never 1500 / 8."""
+    from torch.distributed.tensor import Shard, distribute_tensor
+
+    from repro_torch.sharding import partition
+    shape = (2, FRAMES, 2, 16)
+    for rank, (off, n) in enumerate(chunk_ranges(FRAMES, PARTS)):
+        with dryrun.fake_world((PARTS,), ("model",), rank=rank) as mesh:
+            t = distribute_tensor(torch.empty(shape, device="meta"), mesh,
+                                  [Shard(1)], src_data_rank=None)
+            assert partition.shard_range(t, 1) == (off, n)
+            assert t.to_local().shape[1] == n
+            z = partition.zeros_placed(
+                shape, partition.NamedSharding(mesh, (None, "model")),
+                device="meta")
+            assert z.to_local().shape[1] == n
+            assert partition.shard_range(z, 1) == (off, n)

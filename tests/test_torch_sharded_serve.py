@@ -16,7 +16,13 @@ takes 4 greedy decode steps.  The runs (``RUNS``):
 - (1, 4) under SERVE_RULES: dense and MoE, a 4-way split-K over the
   length; the MoE's 4 query heads over its 2 KV heads, which the model
   axis does not divide, so each rank takes the KV head of its own query
-  head.
+  head;
+- the vlm (internvl2-26b, 8 patches before the 30 tokens) on (2, 2)
+  under SERVE_RULES and SERVE_BIG_RULES, and the enc-dec (whisper-medium,
+  64 frames and a BOS) on (2, 2) under both and on (1, 4): its encoder's
+  flash on each rank's heads, its cross (k, v) length-sharded over
+  "model" as ``cache_axes`` names it, so its cross-attention is a split-K
+  in prefill and decode.
 
 Each run is held
 - to the port unsharded on the same weights and prompts: the logits at
@@ -55,6 +61,7 @@ B, S, CACHE, STEPS = 4, 30, 64, 4
 DM = ("data", "model")
 _moe = configs.smoke_variant(configs.ARCHS["qwen3-moe-30b-a3b"])
 NO_DROP = {"capacity_factor": _moe.n_experts / _moe.top_k}
+_whisper = configs.smoke_variant(configs.ARCHS["whisper-medium"])
 #: name -> (arch, mesh shape, rules, smoke overrides)
 RUNS = {
     "dense": ("smollm-135m", (2, 2), "SERVE_RULES", {}),
@@ -69,6 +76,11 @@ RUNS = {
                         {"n_heads": 9, "n_kv_heads": 3}),
     "dense/1x4": ("smollm-135m", (1, 4), "SERVE_RULES", {}),
     "moe/1x4": ("qwen3-moe-30b-a3b", (1, 4), "SERVE_RULES", {}),
+    "vlm": ("internvl2-26b", (2, 2), "SERVE_RULES", {}),
+    "vlm/big": ("internvl2-26b", (2, 2), "SERVE_BIG_RULES", {}),
+    "encdec": ("whisper-medium", (2, 2), "SERVE_RULES", {}),
+    "encdec/big": ("whisper-medium", (2, 2), "SERVE_BIG_RULES", {}),
+    "encdec/1x4": ("whisper-medium", (1, 4), "SERVE_RULES", {}),
 }
 #: the runs held to the port unsharded ("moe/drops" drops other pairs)
 EXACT = [n for n in RUNS if n != "moe/drops"]
@@ -76,8 +88,9 @@ EXACT = [n for n in RUNS if n != "moe/drops"]
 #: row-parallel product's partial sums, the split-K's parts)
 MESH_TOL = 1e-5
 CACHE_TOL = 1e-6
-#: the ranks' deadline: ten runs, each planned by DTensor on first sight
-DEADLINE_S = 240.0
+#: the ranks' deadline: fifteen runs, each planned by DTensor on first
+#: sight
+DEADLINE_S = 300.0
 
 
 def weights(arch, cfg, seed):
@@ -89,6 +102,19 @@ def weights(arch, cfg, seed):
     return api, params_to_jax(api.model)
 
 
+def prompt_inputs(cfg, rng) -> dict:
+    """Seeded normals for a vlm's patches (B, V, d) or an enc-dec's frames
+    (B, CACHE, d): its cross cache holds CACHE frames, which the serve
+    rules split over "model" as its self cache's length."""
+    if cfg.is_encdec:
+        return {"frames": rng.normal(size=(B, CACHE, cfg.d_model))
+                .astype(np.float32)}
+    if cfg.vision_tokens:
+        return {"patches": rng.normal(size=(B, cfg.vision_tokens,
+                                            cfg.d_model)).astype(np.float32)}
+    return {}
+
+
 @pytest.fixture(scope="module")
 def results(tmp_path_factory):
     rng = np.random.default_rng(27)
@@ -98,8 +124,10 @@ def results(tmp_path_factory):
         apis[name] = api
         runs.append(dict(name=name, arch=arch, cfg=cfg, mesh=(shape, DM),
                          rules=rules, params=params, cache=CACHE,
-                         steps=STEPS, tokens=rng.integers(
-                             1, 256, (B, S)).astype(np.int32)))
+                         steps=STEPS, extra=prompt_inputs(api.cfg, rng),
+                         tokens=rng.integers(
+                             1, 256, (B, 1 if api.cfg.is_encdec else S)
+                         ).astype(np.int32)))
     group = torch_ranks.Ranks(torch_ranks.serve_runs, 4, runs,
                               deadline_s=DEADLINE_S)
     jax_mesh = ref.JaxMeshServe(
@@ -108,7 +136,7 @@ def results(tmp_path_factory):
     plain = {}
     for r in runs:
         logits, toks, caches, dropped, routes = torch_ranks.serve_once(
-            apis[r["name"]], r["tokens"], CACHE, STEPS)
+            apis[r["name"]], r["tokens"], CACHE, STEPS, extra=r["extra"])
         plain[r["name"]] = dict(
             logits=logits, tokens=toks, dropped=dropped, routes=routes,
             caches=torch_ranks.cache_report(apis[r["name"]], caches, None,
@@ -218,6 +246,12 @@ def test_cache_shards_hold_what_their_specs_name(name, results):
     assert attn
     for p in attn:                  # the KV cache's length over "model"
         assert specs[p][:2] == ("data", "model"), (p, specs[p])
+    if arch == "whisper-medium":
+        # the cross (k, v) of every decoder layer: its frames over "model"
+        cross = [p for p in specs if p.startswith("1/")]
+        assert len(cross) == 2 * _whisper.n_layers
+        for p in cross:
+            assert specs[p] == ("data", "model"), (p, specs[p])
     if name == "dense/int8":
         assert specs["0/k_scale"][:2] == specs["0/k"][:2]
     if arch == "recurrentgemma-9b":

@@ -347,6 +347,22 @@ def test_divisible_pad_and_divisibility():
 
 # -- the dry-run's planning ---------------------------------------------------
 
+def h100_jax_auto_plan():
+    """The JAX ``auto_plan`` with its budgets for a 16 GB chip (a 4e9-byte
+    working set, 8e9 bytes of weights) set to the port's shares of the
+    H100's 80 GB (``HBM_BYTES`` / 4 and / 2), the rest of its logic as it
+    is (``tests/test_torch_dryrun.py`` lists the cells this moves)."""
+    import inspect
+    import textwrap
+    src = textwrap.dedent(inspect.getsource(jdryrun.auto_plan))
+    assert src.count("4e9") == 1 and src.count("8e9") == 1
+    src = src.replace("4e9", repr(dryrun.HBM_BYTES / 4)).replace(
+        "8e9", repr(dryrun.HBM_BYTES / 2))
+    ns = dict(vars(jdryrun))
+    exec(src, ns)
+    return ns["auto_plan"]
+
+
 @pytest.mark.parametrize("name", ARCH_NAMES)
 def test_count_params_and_plans_equal_the_jax_package(name):
     cfg, jcfg = configs.ARCHS[name], jconfigs.ARCHS[name]
@@ -355,11 +371,12 @@ def test_count_params_and_plans_equal_the_jax_package(name):
     assert total == jdryrun.count_params(japi)
     assert dryrun.active_params(api, total) == \
         jdryrun.active_params(japi, total)
+    jplan = h100_jax_auto_plan()
     for shape in jconfigs.SHAPES:
         for mshape in MESHES:
             acc, rules = dryrun.auto_plan(
                 cfg, configs.SHAPES_BY_NAME[shape.name], tmesh(mshape))
-            jacc, jrules = jdryrun.auto_plan(jcfg, shape, jmesh(mshape))
+            jacc, jrules = jplan(jcfg, shape, jmesh(mshape))
             assert (acc, rules.rules) == (jacc, jrules.rules), \
                 (shape.name, mshape)
 

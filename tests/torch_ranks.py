@@ -404,12 +404,15 @@ def numpy_tree(tree):
 # -- serving under a mesh ----------------------------------------------------
 
 def serve_once(api, tokens, cache_len: int, steps: int, mesh=None,
-               rules=None):
+               rules=None, extra=None):
     """Prefill ``tokens`` (B, S) into caches of ``cache_len`` positions,
     then ``steps`` greedy decode steps, each token the argmax of the
-    gathered logits.  On ``mesh`` under ``rules`` the weights (float32,
-    not cast) and caches are placed by ``dryrun._lower_prefill`` and
-    ``_lower_decode``, else the model runs unsharded.  Returns (each
+    gathered logits.  ``extra`` (numpy) joins the prompt: a vlm's
+    "patches" (B, V, d), whose V positions come before the text, or an
+    enc-dec's "frames" (B, cache_len, d).  On ``mesh`` under ``rules`` the
+    weights (float32, not cast) and caches are placed by
+    ``dryrun._lower_prefill`` and ``_lower_decode``, else the model runs
+    unsharded.  Returns (each
     step's gathered logits (B, 1, V) as numpy, the tokens chosen (B,
     steps), the caches, what the MoE recorded: each call's moe_dropped
     and each call's routing, the gate experts of this rank's groups)."""
@@ -444,9 +447,12 @@ def serve_once(api, tokens, cache_len: int, steps: int, mesh=None,
         rec["routes"].append(np.concatenate(rec["call"]))
         return out, aux
     logits, toks = [], []
+    prompt = {"tokens": torch.from_numpy(tokens),
+              **{k: torch.from_numpy(v) for k, v in (extra or {}).items()}}
+    S += api.cfg.vision_tokens if "patches" in prompt else 0
     with mock.patch.object(moe, "route", recording_route), \
             mock.patch.object(moe, "moe_apply", recording_apply):
-        out, caches = prefill({"tokens": torch.from_numpy(tokens)})
+        out, caches = prefill(prompt)
         for i in range(steps + 1):
             logits.append(unshard(out).numpy().copy())
             if i == steps:
@@ -458,6 +464,25 @@ def serve_once(api, tokens, cache_len: int, steps: int, mesh=None,
                                   "positions": torch.from_numpy(pos)},
                                  caches)
     return logits, np.stack(toks, 1), caches, rec["dropped"], rec["routes"]
+
+
+def tree_paths(tree, prefix: str = "") -> dict:
+    """The leaves of a cache tree (dicts, and the lists and tuples of the
+    port's layouts: a decoder LM's list of sub-block dicts, an enc-dec's
+    (self caches, cross (k, v) pairs)) by path, "0/k" or "1/3/0"; a tuple
+    of axis names is a leaf."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)) and not (
+            isinstance(tree, tuple)
+            and all(a is None or isinstance(a, str) for a in tree)):
+        items = enumerate(tree)
+    else:
+        return {prefix[:-1]: tree}
+    out = {}
+    for k, v in items:
+        out.update(tree_paths(v, f"{prefix}{k}/"))
+    return out
 
 
 def _spec_slices(spec, mesh, shape):
@@ -484,42 +509,39 @@ def cache_report(api, caches, mesh, rules) -> tuple:
     for bit against the gathered tensor."""
     from torch.distributed.tensor import DTensor
 
-    from repro_torch.models.convert import flatten_paths
     from repro_torch.sharding.partition import (logical_to_spec,
                                                 spec_to_placements, unshard)
-    axes = {f"{j}/{p}": a for j, tree in enumerate(api.cache_axes(False))
-            for p, a in flatten_paths(tree).items()}
+    axes = tree_paths(api.cache_axes(False))
     faults, specs, whole = [], {}, {}
-    for j, tree in enumerate(caches):
-        for p, t in flatten_paths(tree).items():
-            path = f"{j}/{p}"
-            if not isinstance(t, torch.Tensor):
-                whole[path] = t
-                continue
-            full = unshard(t)
-            whole[path] = full.numpy().copy()
-            if mesh is None:
-                continue
-            spec = logical_to_spec(axes[path], mesh, rules, tuple(t.shape))
-            specs[path] = spec
-            if not isinstance(t, DTensor) or \
-                    tuple(t.placements) != spec_to_placements(spec, mesh):
-                placed = getattr(t, "placements", None)
-                faults.append(f"{path}: placed {placed}, spec {spec}")
-                continue
-            local = t.to_local()
-            want = full[_spec_slices(spec, mesh, t.shape)]
-            if local.shape != want.shape or not torch.equal(local, want):
-                faults.append(f"{path}: the shard is not the spec's slice "
-                              f"{_spec_slices(spec, mesh, t.shape)}")
+    for path, t in tree_paths(caches).items():
+        if not isinstance(t, torch.Tensor):
+            whole[path] = t
+            continue
+        full = unshard(t)
+        whole[path] = full.numpy().copy()
+        if mesh is None:
+            continue
+        spec = logical_to_spec(axes[path], mesh, rules, tuple(t.shape))
+        specs[path] = spec
+        if not isinstance(t, DTensor) or \
+                tuple(t.placements) != spec_to_placements(spec, mesh):
+            placed = getattr(t, "placements", None)
+            faults.append(f"{path}: placed {placed}, spec {spec}")
+            continue
+        local = t.to_local()
+        want = full[_spec_slices(spec, mesh, t.shape)]
+        if local.shape != want.shape or not torch.equal(local, want):
+            faults.append(f"{path}: the shard is not the spec's slice "
+                          f"{_spec_slices(spec, mesh, t.shape)}")
     return faults, specs, whole
 
 
 def serve_runs(rank, world, runs):
     """Each run: {"name", "arch", "cfg" (overrides of its smoke variant),
     "mesh": (shape, names), "rules", "params" (the JAX layout, numpy),
-    "tokens" (B, S) int32, "cache" (positions), "steps"}: ``serve_once``
-    on the mesh from those weights, then ``cache_report``.  Returns
+    "tokens" (B, S) int32, "cache" (positions), "steps"[, "extra": the
+    patches or frames]}: ``serve_once`` on the mesh from those weights,
+    then ``cache_report``.  Returns
     {name: {"logits", "tokens", "caches" (gathered; rank 0 alone keeps
     the arrays), "specs", "faults", "dropped", "routes", "coord" (this
     rank's mesh coordinate), "seconds"}}; the meshes are made once per
@@ -544,7 +566,8 @@ def serve_runs(rank, world, runs):
         load_jax_params(api.model, r["params"])
         t0 = time.perf_counter()
         logits, toks, caches, dropped, routes = serve_once(
-            api, r["tokens"], r["cache"], r["steps"], mesh, rules)
+            api, r["tokens"], r["cache"], r["steps"], mesh, rules,
+            r.get("extra"))
         seconds = time.perf_counter() - t0
         faults, specs, whole = cache_report(api, caches, mesh, rules)
         keep = rank == 0
