@@ -16,7 +16,8 @@
 3. Flash attention: held against its plain PyTorch version
    (``ref.attention_ref``) on the same CUDA tensors, at the serving shape
    and at the tile edges (ragged and cross lengths, every head dim, G 3 to
-   16, a window whose first tile is not tile 0, strided and unaligned q);
+   16, a window whose first tile is not tile 0, strided and unaligned q;
+   hd 192 at nemotron-4-340b's prefill shape, in bf16 and float32);
    timed at the serving shape from the card's clock beside PyTorch's
    ``scaled_dot_product_attention`` (timed only; the port never calls it)
    and the kernel's bound.
@@ -92,7 +93,10 @@
     plain version on the same CUDA tensors, bit for bit, over float32,
     bfloat16, int32, int64 and uint8 tables of any bits (NaN payloads,
     infinities, -0.0), widths 1 to 130, ragged M, int32 and int64 indices,
-    unaligned bases and dictionaries on both sides of the shared-memory
+    unaligned bases, rows of 112 to 144 bytes on aligned and unaligned
+    bases, narrow rows (1 to 8 16-byte words) with the indices on a base
+    aligned to their vector and off it, rows of up to 4096 words, and
+    dictionaries on both sides of the shared-memory
     limit; out-of-range indices must raise ``IndexError`` and zero rows
     launch nothing.  Each of the five CUDA wrappers that take floats must
     refuse an input that requires grad while grad is enabled.  Then four
@@ -298,6 +302,14 @@
     printed with the ``roofline_fraction``; flash launches 30 a prefill.
     Then granite-8b's ``decode_32k`` on the "single" mesh (256 ranks of a
     fake process group, on meta), with its run_s.
+31. nemotron-4-340b (run right after phase 24, before phase 30) at full
+    width (d_model 18432, 96 query and 8 KV heads of 192, squared-ReLU
+    d_ff 73728), cut to 1 of its 96 layers (12.9 B parameters, 51.6 GB
+    of float32 weights drawn on the card): B 2 prompts of 512 tokens
+    through ``ModelAPI.prefill`` (a cache of 640) and 8 greedy
+    ``serve_step``s, flash launched once a prefill at hd 192; the checks
+    of phase 23 and the peak device memory.  Then flash timed at its
+    prefill shape (B 8, S = T 512) in bf16 and float32 as in phase 3.
 
 Every check that fails exits non-zero before the last line is printed.
 Without a CUDA card, or run from a directory without the repository's
@@ -367,6 +379,9 @@ F32_FLOP_PER_S = roofline.F32_FLOPS          # outside the tensor cores
 SERVE_SHAPE = dict(B=8, S=512, T=512, H=9, KV=3, hd=64)
 # qwen3-moe-30b-a3b's served prefill: 32 query and 4 KV heads of 128
 MOE_SHAPE = dict(B=8, S=512, T=512, H=32, KV=4, hd=128)
+# nemotron-4-340b's prefill as flash sees it: 96 query and 8 KV heads of
+# 192 (18432 / 96; G 12), B 8 x S 512 as the other kernel cells
+NEMOTRON_SHAPE = dict(B=8, S=512, T=512, H=96, KV=8, hd=192)
 # bf16: the plain version computes in f32 and rounds once to bf16; the
 # tensor-core kernel also rounds P to bf16 before the P V product (the
 # JAX model's chunked_attention does the same).  Each p moves by at most
@@ -674,6 +689,18 @@ def phase_kernel_vs_plain():
         ("strided q (padded heads)", sv, torch.bfloat16, True, 0),
         ("unaligned q (padded hd)", dict(sv, B=2, S=200, T=200),
          torch.bfloat16, True, 0),
+        # hd 192, nemotron-4-340b's heads (BK 32 in bf16)
+        ("hd 192 GQA 96/8 (nemotron-4-340b prefill)", NEMOTRON_SHAPE,
+         torch.bfloat16, True, 0),
+        ("hd 192 GQA 96/8 f32", NEMOTRON_SHAPE, torch.float32, True, 0),
+        ("hd 192 ragged cross S 300 T 333", dict(NEMOTRON_SHAPE, B=2, S=300,
+                                                 T=333), torch.bfloat16,
+         True, 0),
+        ("hd 192 non-causal S 31 T 65", dict(NEMOTRON_SHAPE, B=2, S=31,
+                                             T=65), torch.bfloat16, False, 0),
+        ("hd 192 window 96, S=T 1000 f32", dict(NEMOTRON_SHAPE, B=1, S=1000,
+                                                T=1000, H=24, KV=2),
+         torch.float32, True, 96),
     ]
     errs = {}
     for i, (name, shp, dtype, causal, window) in enumerate(cases):
@@ -695,13 +722,15 @@ def phase_kernel_vs_plain():
         check(ok, f"flash_attention vs attention_ref [{name}]")
         errs[name] = err
     return errs["serving bf16 causal"], \
-        errs["hd 128 GQA 32/4 (qwen3-moe prefill)"]
+        errs["hd 128 GQA 32/4 (qwen3-moe prefill)"], \
+        max(e for n, e in errs.items() if n.startswith("hd 192"))
 
 
-def phase_times(sv=SERVE_SHAPE, causal: bool = True):
-    """Flash at a served prefill shape (smollm-135m's by default): kernel,
-    plain version and sdpa from CUDA-graph replays, beside the bound."""
-    q, k, v = attn_inputs(100, dtype=torch.bfloat16, **sv)
+def phase_times(sv=SERVE_SHAPE, causal: bool = True, dtype=torch.bfloat16):
+    """Flash at a served prefill shape (smollm-135m's by default, bf16 by
+    default): kernel, plain version and sdpa from CUDA-graph replays,
+    beside the bound (float32 products at the CUDA cores' rate)."""
+    q, k, v = attn_inputs(100, dtype=dtype, **sv)
     B, S, T, H, KV, hd = (sv[n] for n in ("B", "S", "T", "H", "KV", "hd"))
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
 
@@ -723,12 +752,15 @@ def phase_times(sv=SERVE_SHAPE, causal: bool = True):
     plain_t += time_ms(plain)
     lib = time_ms(library)
     # causal: half the pairs
-    flops, nbytes, _ = costs.flash_attention(q, k, v, causal=causal)
-    bound_ms, bound_by = bound(nbytes, flops, BF16_FLOP_PER_S)
+    flops, nbytes, tensor_cores = costs.flash_attention(q, k, v,
+                                                        causal=causal)
+    bound_ms, bound_by = bound(nbytes, flops, BF16_FLOP_PER_S
+                               if tensor_cores else F32_FLOP_PER_S)
     ms, plain_ms, lib_ms = (statistics.median(t)
                             for t in (kern, plain_t, lib))
     kind = "causal" if causal else "non-causal"
-    print(f"times at {tuple(q.shape)} bf16 {kind}, ms per call: kernel "
+    print(f"times at {tuple(q.shape)} {str(dtype)[6:]} {kind}, ms per call: "
+          "kernel "
           f"{spread(kern)}, plain {spread(plain_t)}, library (sdpa) "
           f"{spread(lib)} (max_abs_err vs plain {lib_err!r}); bound "
           f"{bound_ms!r} ms by {bound_by} ({nbytes} bytes, {flops:.0f} "
@@ -2032,6 +2064,31 @@ def phase_gather_vs_plain():
             held(name, table, idx, f"{str(dtype)[6:]} base + {shift}")
             held(name, flat[:8000].view(1000, 8)[:, 1:7], idx,
                  f"{str(dtype)[6:]} strided")
+    # rows of 112, 128 and 144 bytes in 16-byte words, and in 4-byte words
+    # on a base 4 bytes off the boundary; narrow rows of 16 to 128 bytes,
+    # the indices on an aligned base and one index off it; then rows of 3
+    # to 4096 words
+    for W in (28, 32, 36):
+        flat = gather_table(g, 1, 3000 * W + 1, torch.float32).view(-1)
+        for shift in (0, 1):
+            table = flat[shift:shift + 3000 * W].view(3000, W)
+            for idx_dtype in (torch.int32, torch.int64):
+                idx = torch.randint(0, 3000, (100_003,), generator=g,
+                                    device=CUDA, dtype=idx_dtype)
+                held("take_rows", table, idx, f"{4 * W} B rows, base + "
+                     f"{4 * shift} B, {str(idx_dtype)[6:]}")
+    for W in (4, 8, 16, 32):
+        table = gather_table(g, 5000, W, torch.float32)
+        for idx_dtype in (torch.int32, torch.int64):
+            idx = torch.randint(0, 5000, (100_004,), generator=g,
+                                device=CUDA, dtype=idx_dtype)
+            for shift in (0, 1):
+                held("take_rows", table, idx[shift:], f"{4 * W} B rows, "
+                     f"indices at base + {shift}, {str(idx_dtype)[6:]}")
+    for W in (3, 33, 1024, 4096):
+        idx = torch.randint(0, 700, (20_001,), generator=g, device=CUDA)
+        held("take_rows", gather_table(g, 700, W, torch.float32), idx,
+             f"float32 W={W}")
     launches = dict(ops.launch_counts)
     check(all(launches[k] == n[k] for k in GATHER_LINES) and all(
         v == 0 for k, v in launches.items() if k not in GATHER_LINES),
@@ -4309,6 +4366,82 @@ def phase_serve_family(name: str) -> dict:
 
 
 # --------------------------------------------------------------------------
+# nemotron-4-340b at full width: flash at hd 192 (phase 31)
+# --------------------------------------------------------------------------
+
+# served at 1 of its 96 layers: 12.9 B parameters (the untied 256000 x
+# 18432 embedding and head, 3.45 B in the layer), 51.6 GB of float32
+# masters; each further layer adds 13.8 GB, so one card's 80 GB takes one.
+# B 2 prompts of 512 tokens, a cache of 640, 8 greedy decode steps
+NEMOTRON_SERVE = dict(layers=1, B=2, S=512, cache=640, steps=8)
+
+
+def phase_serve_nemotron() -> dict:
+    """Phase 31: nemotron-4-340b at full width (d_model 18432, 96 query
+    and 8 KV heads of 192, squared-ReLU d_ff 73728), cut to one layer,
+    served through ``ModelAPI.prefill`` and greedy ``serve_step``: flash
+    launched once a prefill layer at hd 192 (the launch counts set to 0
+    just before and read just after), the prefill logits through the kernel
+    against the plain path in bf16 and float32, every launch against its
+    plain version, decode against prefill; the peak device memory from
+    before the weights are drawn.  Returns the launches and the peak."""
+    n = NEMOTRON_SERVE
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = big_cfg("nemotron-4-340b", n["layers"])
+    t0 = time.perf_counter()
+    api = ModelAPI(cfg, device=CUDA)
+    api.model.init(torch.Generator(device=CUDA).manual_seed(0))
+    sync()
+    params = sum(p.numel() for p in api.model.parameters())
+    print(f"serve: {cfg.name} {layout(api.model)}, d_model {cfg.d_model}, "
+          f"heads {cfg.n_heads}/{cfg.n_kv_heads} of {cfg.hd}, d_ff "
+          f"{cfg.d_ff} ({cfg.mlp}), {params} parameters in float32, drawn "
+          f"on the card in {time.perf_counter() - t0:.1f} s; device memory "
+          f"allocated {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    rng = np.random.default_rng(31)
+    tokens = torch.from_numpy(rng.integers(
+        1, cfg.vocab, (n["B"], n["S"])).astype(np.int32)).to(CUDA)
+    shape = ShapeConfig("serve", "prefill", n["cache"], n["B"])
+    t0 = time.perf_counter()
+    with recording_flash() as calls:
+        ops.reset_launch_counts()
+        outs = serve_family_rounds(api, [dict(tokens=tokens)], shape,
+                                   n["steps"], 0, cfg.name)
+        launches = dict(ops.launch_counts)
+    print(f"{cfg.name} launch counts over one prefill and {n['steps']} "
+          f"decode steps: {launches}; flash calls (S, T, H, KV, hd, causal):"
+          f" {calls}")
+    check(launches == dict(dict.fromkeys(launches, 0),
+                           flash_attention=cfg.n_layers),
+          f"{cfg.name}: launches {launches} != flash_attention "
+          f"{cfg.n_layers}")
+    check(calls == [(n["S"], n["S"], cfg.n_heads, cfg.n_kv_heads, 192,
+                     True)] * cfg.n_layers,
+          f"{cfg.name}: the flash calls are not the served shape at hd 192")
+    check_tokens(outs, n["B"] * n["steps"], cfg.vocab, cfg.name)
+    secs = {"serve": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    kernel_vs_plain_prefill(api, tokens, shape,
+                            [(attention, "_attend", plain_attend)],
+                            cfg.name, outs[0][:, 0].tolist())
+    secs["kernel vs plain"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    each_launch_vs_plain(api, tokens, shape,
+                         [("flash_attention", ref.attention_ref, TOL)],
+                         cfg.name)
+    decode_vs_prefill(api, tokens, shape, cfg.name)
+    secs["each launch, decode vs prefill"] = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    print(f"{cfg.name} serving: peak device memory {peak} B "
+          f"({peak / 2**30:.2f} GiB, bf16 casts and float32 checks "
+          f"included); seconds {secs} [{smi_line()}]")
+    del api, tokens, outs
+    torch.cuda.empty_cache()
+    return dict(launches=launches, peak_bytes=peak, params=params)
+
+
+# --------------------------------------------------------------------------
 # the dry-run and its roofline on the card (phase 30)
 # --------------------------------------------------------------------------
 
@@ -4406,7 +4539,7 @@ def main() -> int:
         return out
     timed("phase 1", phase_device)
     insts = timed("phase 2", phase_build)
-    max_err, hd128_err = timed("phase 3", phase_kernel_vs_plain)
+    max_err, hd128_err, hd192_err = timed("phase 3", phase_kernel_vs_plain)
     times = timed("phase 3 times", phase_times)
     launches = timed("phase 4", phase_serve)
     rel_err = timed("phase 5", phase_relational_vs_plain)
@@ -4458,6 +4591,10 @@ def main() -> int:
     family_launches = {name: timed(f"phase {n}", phase_serve_family, name)
                        for n, name in ((23, "internvl2-26b"),
                                        (24, "whisper-medium"))}
+    nemotron = timed("phase 31", phase_serve_nemotron)
+    hd192_times = timed("phase 31 times", lambda: {
+        str(dt)[6:]: phase_times(NEMOTRON_SHAPE, dtype=dt)
+        for dt in (torch.bfloat16, torch.float32)})
     dry = timed("phase 30", phase_dryrun)
     print(f"device: {smi_line()}")
     flash_paths = {"smollm-135m": launches["flash_attention"],
@@ -4466,6 +4603,7 @@ def main() -> int:
                    "qwen3-moe-30b-a3b": moe_launches["flash_attention"],
                    **{k: v["flash_attention"]
                       for k, v in family_launches.items()},
+                   "nemotron-4-340b": nemotron["launches"]["flash_attention"],
                    **{f"dry-run {k}": dry[k]["launches"]["flash_attention"]
                       for k in DRYRUN_CELLS},
                    **prompt_flash}
@@ -4480,6 +4618,9 @@ def main() -> int:
                    long=rec_times["flash_hd256_long"]),
         hd128=dict(max_abs_err=hd128_err, serving=hd128_times,
                    shape=MOE_SHAPE),
+        hd192=dict(max_abs_err=hd192_err, shape=NEMOTRON_SHAPE,
+                   causal=True, **hd192_times,
+                   nemotron_peak_bytes=nemotron["peak_bytes"]),
         internvl2=dict(max_abs_err=family["internvl2"][0],
                        serving=family["internvl2"][1], shape=VLM_SHAPE,
                        causal=True),

@@ -107,11 +107,15 @@ def build_all(names: Sequence[str]) -> Dict[str, float]:
 
 def ptxas_usage(name: str) -> List[dict]:
     """What ptxas reported (``-Xptxas -v``) for each kernel of the built
-    ``csrc/<name>.cu``: its mangled name, registers a thread, static
-    shared memory bytes a block, stack frame and spill store and load
-    bytes a thread."""
+    ``csrc/<name>.cu`` (``parse_ptxas``)."""
+    return parse_ptxas(library_path(name).with_suffix(".log").read_text())
+
+
+def parse_ptxas(log: str) -> List[dict]:
+    """Each kernel of a ptxas report (``-Xptxas -v``): its mangled name,
+    registers a thread, static shared memory bytes a block, stack frame
+    and spill store and load bytes a thread."""
     kernels, cur = [], {}
-    log = library_path(name).with_suffix(".log").read_text()
     for line in log.splitlines():
         m = re.search(r"Function properties for (\S+)", line)
         if m:

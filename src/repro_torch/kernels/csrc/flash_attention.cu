@@ -29,8 +29,9 @@
 // in flight while tile j is computed; one __syncthreads per tile), in an
 // XOR-swizzled layout so that the eight rows one ldmatrix phase reads fall
 // in eight different bank groups.  Q is staged once per block; up to hd
-// 128 its fragments stay in registers, at hd 256 they are re-read from
-// shared memory (O's accumulators alone take 128 registers a thread).
+// 128 its fragments stay in registers, at hd 192 and 256 they are re-read
+// from shared memory (O's accumulators alone take 96 registers a thread
+// at hd 192, 128 at hd 256).
 // The KV loop runs only over the tiles that hold a visible key for some
 // row of the block (the window's first tile to the causal diagonal), and
 // only the diagonal tile, the window's edge tile and the ragged tail are
@@ -44,7 +45,11 @@
 // float alone now that bf16 has its own kernel: both products as f32 FMAs
 // out of shared memory, 4 warps, 64 x 64 tiles; at hd 256 a
 // block takes 213,760 bytes of dynamic shared memory (one block per SM)
-// and ptxas gives a thread 240 registers with no spills (CUDA 12.8).
+// and ptxas gives a thread 240 registers with no spills (CUDA 12.8); at
+// hd 192, 164,608 bytes.
+//
+// Head dims: 16, 32, 64, 128, 192 and 256 (with_hd), those of every
+// configured arch with attention; any other is refused.
 //
 // Numerics follow the TPU kernel: scores are scaled, masked with the finite
 // NEG_INF = -1e30 (with -inf, a row whose first tile is fully masked would
@@ -266,16 +271,20 @@ constexpr float LOG2E = 1.4426950408889634f;
 //   32    4      64   20,480 B      100         0       4
 //   64    4      64   40,960 B      138         0       3
 //   128   4      64   81,920 B      245         0       2
+//   192   4      32   73,728 B      227         0       2
 //   256   4      32   98,304 B      255         0       2
 //
 // Chosen on the card among 4 and 8 warps and BK 32 and 64: 8 warps were
 // no faster at any head dim, and at hd 256 BK 64 spills registers and is
-// slower, while BK 32 keeps two blocks on an SM (PERF.md section 6; that
-// sweep's script is not kept, so its times are not recorded).
+// slower, while BK 32 keeps two blocks on an SM (that sweep's script is
+// not kept, so its times are not recorded).  At hd 192 (nemotron-4-340b)
+// BK 64 spills nothing at 255 registers but its 122,880 B leave one block
+// on an SM, and it took 0.787 ms at nemotron's prefill against BK 32's
+// 0.537 (flash_sweep.py; PERF.md section 6).
 template <int HD>
 struct Bf16Tiles {
   static constexpr int WARPS = 4;
-  static constexpr int BK = HD >= 256 ? 32 : 64;
+  static constexpr int BK = HD >= 192 ? 32 : 64;
   static constexpr int BQ = 16 * WARPS;
   static constexpr int NT = 32 * WARPS;
   static constexpr bool Q_IN_REGS = HD <= 128;
@@ -610,6 +619,7 @@ cudaError_t with_hd(int hd, F&& f) {
     case 32: return f(std::integral_constant<int, 32>{});
     case 64: return f(std::integral_constant<int, 64>{});
     case 128: return f(std::integral_constant<int, 128>{});
+    case 192: return f(std::integral_constant<int, 192>{});
     case 256: return f(std::integral_constant<int, 256>{});
     default: return cudaErrorInvalidValue;
   }

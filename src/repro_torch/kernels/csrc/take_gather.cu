@@ -25,6 +25,16 @@
 // its G lanes by a shuffle.  Any M and any width W >= 1; the grid is sized
 // to the card (resident blocks) and loops over the rows.
 //
+// Narrow rows (take_rows, and dict_decode past the shared memory, in rows
+// of 1, 2, 4 or 8 words, with the indices' base aligned to a vector of
+// SLOTS / units of them): a warp takes chunks of 32 * SLOTS output words,
+// whole rows.  Lane l loads the chunk's indices as one vector (16 bytes of
+// int32 at 32-byte rows) and the lanes trade them by shuffles; each lane
+// then issues the SLOTS table loads of its words before any store, and the
+// next chunk's index vector before it stores this one, so that every store
+// writes 32 consecutive words.  The grid is persistent: the blocks that
+// fit the card at once walk all the chunks.
+//
 // dict_decode stages the dictionary in shared memory, once per block, when
 // it fits the per-block opt-in limit (227 KB on the H100; the wrapper asks
 // the device for it), the counterpart of the TPU's dictionary pinned in
@@ -35,10 +45,18 @@
 // row is written once, each index read once, each distinct source row read
 // at least once (3.35 TB/s); there is no arithmetic.  Output writes are
 // coalesced 16-byte stores where the row's bytes allow; the source reads
-// land at data-dependent rows, so a table larger than L2 is read at
-// sector granularity.  The indices and the output pass through with the
-// streaming hints (__ldcs, __stcs), which leave L2 to the table.  Copies
-// through cp.async or TMA are for a later kernel.
+// land at data-dependent rows.  The indices and the output pass through
+// with the streaming hints (__ldcs, __stcs), which leave L2 to the table.
+// The timed variants (take_sweep.py; PERF.md section 6) suggest, without
+// a counter of L2 hits to confirm it, that a table which L2 does not keep
+// is read again from device memory each time a row is named: SF10's 32 B
+// rows and 15 M indices reach 0.78 of the bound from a 3.2 MB table, 0.52
+// from 24 MB, 0.37 from 48 MB and 0.33 from 96 MB.  The narrow kernel
+// gains about 1 % there over the row groups; a flat walk of the output's
+// words at every width, more blocks an SM, L2 evict_last policies on the
+// table and Hopper's bulk copies through a ring in shared memory
+// (cp.async.bulk, mbarriers) were each timed against this design and
+// gained nothing.
 //
 // The caller validates every index in [0, R) before the launch and
 // launches nothing for zero rows or zero row bytes.
@@ -51,6 +69,9 @@ namespace {
 constexpr int NTHREADS = 256;
 constexpr int WARPS = NTHREADS / 32;
 constexpr int MAX_DEVICES = 64;
+// narrow rows: words a lane keeps in flight, and whether the path is taken
+constexpr int SLOTS = 8;
+constexpr bool NARROW = true;
 
 template <int V> struct Word;
 template <> struct Word<16> { using T = uint4; };
@@ -97,6 +118,89 @@ gather_rows_kernel(const W* __restrict__ src, long long src_words,
         for (long long u = part; u < units; u += G) __stcs(to + u, from[u]);
       }
     }
+  }
+}
+
+// the N indices at p (p aligned to them, up to 16 bytes) by 8- or 16-byte
+// vector loads, with the streaming hint
+template <typename I, int N>
+__device__ __forceinline__ void load_indices(const I* p, I (&v)[N]) {
+  constexpr int BYTES = N * (int)sizeof(I);
+  if constexpr (BYTES % 16 == 0) {
+    union { uint4 q[BYTES / 16]; I i[N]; } u;
+#pragma unroll
+    for (int k = 0; k < BYTES / 16; ++k)
+      u.q[k] = __ldcs(reinterpret_cast<const uint4*>(p) + k);
+#pragma unroll
+    for (int k = 0; k < N; ++k) v[k] = u.i[k];
+  } else if constexpr (BYTES == 8) {
+    union { uint2 q; I i[N]; } u;
+    u.q = __ldcs(reinterpret_cast<const uint2*>(p));
+#pragma unroll
+    for (int k = 0; k < N; ++k) v[k] = u.i[k];
+  } else {
+    v[0] = __ldcs(p);
+  }
+}
+
+// src: rows of UNITS words; idx: m row indices of type I; out: m rows.  A
+// chunk is 32 * RPL rows; lane l holds the indices of its rows RPL * l to
+// RPL * l + RPL - 1.  Word 32 s + l of the chunk (slot s of lane l) is
+// column l % UNITS of the chunk's row (32 s + l) / UNITS, whose index lane
+// (32 s + l) / SLOTS holds as its component (l / UNITS) % RPL.
+template <typename W, typename I, int UNITS>
+__global__ void __launch_bounds__(NTHREADS)
+gather_narrow_kernel(const W* __restrict__ src, const I* __restrict__ idx,
+                     long long m, W* __restrict__ out) {
+  constexpr int RPL = SLOTS / UNITS;
+  static_assert(RPL * UNITS == SLOTS, "rows of 1, 2, 4 or 8 words");
+  const int lane = threadIdx.x & 31;
+  const long long warp =
+      (blockIdx.x * (long long)NTHREADS + threadIdx.x) >> 5;
+  const long long step = (long long)gridDim.x * WARPS * 32 * RPL;
+  const long long n = m * UNITS;
+  const int comp = (lane / UNITS) % RPL;
+  I v[RPL];
+  auto indices = [&](long long r0) {
+    const long long mine = r0 + (long long)RPL * lane;
+    if (mine + RPL <= m) {
+      load_indices<I, RPL>(idx + mine, v);
+    } else {
+#pragma unroll
+      for (int k = 0; k < RPL; ++k)
+        v[k] = mine + k < m ? __ldcs(idx + mine + k) : I(0);
+    }
+  };
+  long long r0 = warp * 32 * RPL;
+  if (r0 >= m) return;
+  indices(r0);
+  for (;;) {                         // r0 is the warp's: no lane leaves
+    I ix[SLOTS];
+#pragma unroll
+    for (int s = 0; s < SLOTS; ++s) {
+      const int from = (32 * s + lane) / SLOTS;
+      ix[s] = I(0);
+#pragma unroll
+      for (int k = 0; k < RPL; ++k) {
+        const I x = __shfl_sync(0xffffffffu, v[k], from);
+        if (k == comp) ix[s] = x;
+      }
+    }
+    // every table load of the chunk before any store
+    const long long w0 = r0 * UNITS + lane;
+    W val[SLOTS];
+#pragma unroll
+    for (int s = 0; s < SLOTS; ++s)
+      if (w0 + 32 * s < n)
+        val[s] = __ldg(src + (long long)ix[s] * UNITS + lane % UNITS);
+    // the next chunk's indices, in flight while this one is stored
+    const long long next = r0 + step;
+    indices(next);
+#pragma unroll
+    for (int s = 0; s < SLOTS; ++s)
+      if (w0 + 32 * s < n) __stcs(out + w0 + 32 * s, val[s]);
+    r0 = next;
+    if (r0 >= m) break;
   }
 }
 
@@ -163,6 +267,48 @@ cudaError_t launch(const void* src, long long R, long long units,
   return cudaGetLastError();
 }
 
+template <typename W, typename I, int UNITS>
+cudaError_t launch_narrow(const void* src, const void* idx, long long m,
+                          void* out, cudaStream_t st) {
+  DeviceInfo dev;
+  cudaError_t err = device_info(&dev);
+  if (err != cudaSuccess) return err;
+  auto kernel = gather_narrow_kernel<W, I, UNITS>;
+  static int fit = 0;                // once, before any graph capture
+  if (fit == 0) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&fit, kernel,
+                                                        NTHREADS, 0);
+    if (err != cudaSuccess) return err;
+    if (fit < 1) fit = 1;
+  }
+  const long long rows = 32LL * WARPS * (SLOTS / UNITS);   // a block's
+  const long long need = (m + rows - 1) / rows;
+  const long long cap = (long long)dev.sms * fit;
+  kernel<<<(int)(need < cap ? need : cap), NTHREADS, 0, st>>>(
+      static_cast<const W*>(src), static_cast<const I*>(idx), m,
+      static_cast<W*>(out));
+  return cudaGetLastError();
+}
+
+// the narrow path where rows are 1, 2, 4 or 8 words and the indices' base
+// is aligned to a vector of SLOTS / units of them (up to 16 bytes), else
+// the row-group path
+template <typename W, typename I, bool STAGE>
+cudaError_t by_path(const void* src, long long R, long long units,
+                    const void* idx, long long m, void* out,
+                    cudaStream_t st) {
+  const long long vec = units <= SLOTS && SLOTS % units == 0
+                            ? SLOTS / units * (long long)sizeof(I) : 0;
+  if (NARROW && !STAGE && vec && (uintptr_t)idx % (vec < 16 ? vec : 16) == 0)
+    switch (units) {
+      case 1: return launch_narrow<W, I, 1>(src, idx, m, out, st);
+      case 2: return launch_narrow<W, I, 2>(src, idx, m, out, st);
+      case 4: return launch_narrow<W, I, 4>(src, idx, m, out, st);
+      case 8: return launch_narrow<W, I, 8>(src, idx, m, out, st);
+    }
+  return launch<W, I, STAGE>(src, R, units, idx, m, out, st);
+}
+
 template <int V>
 cudaError_t by_index(const void* src, long long R, long long row_bytes,
                      const void* idx, int idx_bytes, long long m, void* out,
@@ -170,11 +316,11 @@ cudaError_t by_index(const void* src, long long R, long long row_bytes,
   using W = typename Word<V>::T;
   const long long units = row_bytes / V;
   if (idx_bytes == 4)
-    return stage ? launch<W, int32_t, true>(src, R, units, idx, m, out, st)
-                 : launch<W, int32_t, false>(src, R, units, idx, m, out, st);
+    return stage ? by_path<W, int32_t, true>(src, R, units, idx, m, out, st)
+                 : by_path<W, int32_t, false>(src, R, units, idx, m, out, st);
   if (idx_bytes == 8)
-    return stage ? launch<W, int64_t, true>(src, R, units, idx, m, out, st)
-                 : launch<W, int64_t, false>(src, R, units, idx, m, out, st);
+    return stage ? by_path<W, int64_t, true>(src, R, units, idx, m, out, st)
+                 : by_path<W, int64_t, false>(src, R, units, idx, m, out, st);
   return cudaErrorInvalidValue;
 }
 

@@ -17,7 +17,7 @@ import torch
 
 from . import build
 
-SUPPORTED_HD = (16, 32, 64, 128, 256)
+SUPPORTED_HD = (16, 32, 64, 128, 192, 256)
 DTYPES = (torch.float32, torch.bfloat16)
 
 _fn = None

@@ -1,13 +1,15 @@
 """The hand-written CUDA kernels against their plain versions on the card:
 flash attention at the shapes of tests/test_torch_kernels.py, in float32
-and bfloat16, at the bf16 tensor-core kernel's tile edges, and at hd 256
-with a window; the WKV-6 and RG-LRU scans at
-ragged lengths and widths; the relational kernels (splitmix64, sentinel
-gather, segment reductions) bit for bit over every dtype family and edge
-case, and the relational ops on the card against the same ops on the CPU;
-read-only inputs at the kdispatch edge and the plan-compiled star query
-through the executor's threads and Flight workers; the row gather and
-dictionary decode bit for bit, the gradient guard of every wrapper
+and bfloat16, at the bf16 tensor-core kernel's tile edges (hd 16 to 256,
+nemotron-4-340b's 192 among them), and at hd 256 with a window; the
+WKV-6 and RG-LRU scans at ragged lengths and widths; the relational
+kernels (splitmix64, sentinel gather, segment reductions) bit for bit
+over every dtype family and edge case, and the relational ops on the
+card against the same ops on the CPU; read-only inputs at the kdispatch
+edge and the plan-compiled star query through the executor's threads and
+Flight workers; the row gather and dictionary decode bit for bit (staged
+and through L2, at the word widths' boundaries and over row widths), the
+gradient guard of every wrapper
 that takes floats, and a train step of the ssm, hybrid, moe, vlm and
 enc-dec families that reaches no kernel wrapper; flash at the vlm's and
 the enc-dec's served shapes, and those families' prefill and decode on
@@ -52,8 +54,10 @@ FLASH_CASES = [  # (B, S, T, H, KV, hd, causal, window), float32 and bf16
     (1, 200, 200, 3, 1, 64, True, 0),
     (2, 100, 130, 4, 2, 16, False, 48),
     (1, 96, 96, 2, 1, 128, True, 0),
+    (1, 130, 130, 4, 1, 192, True, 0),
 ]
-# the bf16 tensor-core kernel's tile edges (BQ 64; BK 64, 32 at hd 256),
+# the bf16 tensor-core kernel's tile edges (BQ 64; BK 64, 32 at hd 192 and
+# 256),
 # with q_pad: q sliced out of padded heads ("heads", strides stay 16-byte
 # multiples) or a padded head dim ("hd", strides of hd + 4 elements)
 BF16_EDGES = [
@@ -67,6 +71,14 @@ BF16_EDGES = [
     (2, 77, 150, 16, 1, 256, False, 0, None),      # hd 256 ragged, S < T
     (1, 1000, 1000, 6, 2, 64, True, 128, None),    # window: first tile > 0
     (1, 1000, 1000, 16, 1, 256, True, 128, None),
+    # hd 192 (nemotron-4-340b, G 12): BK 32, so T 31, 32, 33 and 65 cross
+    # the key tiles; S < T and a window past tile 0
+    (1, 31, 31, 12, 1, 192, True, 0, None),
+    (2, 32, 33, 12, 1, 192, True, 0, None),
+    (1, 65, 65, 24, 2, 192, False, 0, None),
+    (2, 100, 300, 12, 1, 192, True, 0, None),
+    (1, 500, 500, 12, 1, 192, True, 96, None),
+    (2, 200, 200, 12, 1, 192, True, 0, "hd"),
     (2, 200, 200, 4, 2, 64, True, 0, "heads"),
     (2, 200, 200, 4, 2, 64, True, 0, "hd"),
 ]
@@ -608,6 +620,56 @@ def test_dict_decode_on_both_sides_of_the_shared_memory_limit(cuda, dtype,
     idx = torch.randint(0, R, (100_003,), generator=g, device=cuda)
     assert_same_bits(ops.dict_decode(idx, table),
                      ref.dict_decode_ref(idx, table))
+
+
+# rows of 112, 128 and 144 bytes, in 16-byte words on an aligned base and
+# in 4-byte words on a base 4 bytes off the 16-byte boundary
+@pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64],
+                         ids=["int32", "int64"])
+@pytest.mark.parametrize("shift", [0, 1], ids=["aligned", "base+4"])
+@pytest.mark.parametrize("row_bytes", [112, 128, 144])
+def test_take_rows_at_the_word_boundaries(cuda, row_bytes, shift,
+                                          idx_dtype):
+    g = torch.Generator(device=cuda).manual_seed(row_bytes + shift)
+    W = row_bytes // 4
+    flat = gather_table(g, 1, 3000 * W + shift, torch.float32).view(-1)
+    table = flat[shift:].view(3000, W)
+    assert (table.data_ptr() % 16 == 0) == (shift == 0)
+    for M in (1, 33, 100_003):
+        idx = torch.randint(0, 3000, (M,), generator=g, device=cuda,
+                            dtype=idx_dtype)
+        before = ops.launch_counts["take_rows"]
+        got = ops.take_rows(table, idx)
+        assert ops.launch_counts["take_rows"] == before + 1
+        assert_same_bits(got, ref.take_rows_ref(table, idx))
+
+
+# rows of 1 to 4096 words (the narrow path's 1 to 8, fewer than a warp's
+# 32 lanes, one word more than 32, many warps a row), ragged M
+@pytest.mark.parametrize("W", [1, 3, 4, 8, 32, 33, 256, 1024, 4096])
+def test_word_path_over_row_widths(cuda, W):
+    g = torch.Generator(device=cuda).manual_seed(W)
+    table = gather_table(g, 700, W, torch.float32)
+    for M in (1, 31, 513, 20_001):
+        idx = torch.randint(0, 700, (M,), generator=g, device=cuda)
+        assert_same_bits(ops.take_rows(table, idx),
+                         ref.take_rows_ref(table, idx))
+
+
+# rows of 1 to 8 16-byte words take a vector of indices a lane where the
+# indices' base is aligned to it, a scalar index a slot where it is not
+@pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64],
+                         ids=["int32", "int64"])
+@pytest.mark.parametrize("shift", [0, 1], ids=["aligned", "base+1"])
+@pytest.mark.parametrize("row_bytes", [16, 32, 64, 128])
+def test_take_rows_vector_indices(cuda, row_bytes, shift, idx_dtype):
+    g = torch.Generator(device=cuda).manual_seed(row_bytes + shift)
+    table = gather_table(g, 5000, row_bytes // 4, torch.float32)
+    for M in (1, 127, 129, 100_003):
+        idx = torch.randint(0, 5000, (M + shift,), generator=g, device=cuda,
+                            dtype=idx_dtype)[shift:]
+        assert_same_bits(ops.take_rows(table, idx),
+                         ref.take_rows_ref(table, idx))
 
 
 @pytest.mark.parametrize("kind", ["take_rows", "dict_decode"])
