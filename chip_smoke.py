@@ -2692,21 +2692,30 @@ def route_flips(a, b):
     return n, per_token
 
 
-def float64_grads(api, batch) -> list:
-    """Step 0's grads of ``api``'s model (on the CPU) computed in float64
-    throughout: a float64 copy of its weights, and every ``.float()`` of
-    the model's own float32 steps (norms, recurrences, loss) giving
-    float64; the grads in the order of ``jax_leaves``."""
+def _f64(t, *a, **k):
+    """``Tensor.float`` while a float64 twin runs: float64 instead."""
+    return t if t.dtype == torch.float64 else t.double()
+
+
+def float64_twin(api) -> ModelAPI:
+    """A float64 copy of ``api``'s model on the CPU: its weights copied
+    from ``api``'s device and made float64, the float32 ones too."""
     cfg = dataclasses.replace(api.cfg, dtype="float64",
                               param_dtype="float64")
     twin = ModelAPI(cfg, device="cpu")
     twin.model.load_state_dict(api.model.state_dict())
     for p in twin.model.parameters():
         p.data = p.data.double()
+    return twin
 
-    def f64(t, *a, **k):
-        return t if t.dtype == torch.float64 else t.double()
-    with mock.patch.object(torch.Tensor, "float", f64):
+
+def float64_grads(api, batch) -> list:
+    """Step 0's grads of ``api``'s model (on the CPU) computed in float64
+    throughout: a float64 copy of its weights, and every ``.float()`` of
+    the model's own float32 steps (norms, recurrences, loss) giving
+    float64; the grads in the order of ``jax_leaves``."""
+    twin = float64_twin(api)
+    with mock.patch.object(torch.Tensor, "float", _f64):
         loss, _ = twin.train_loss(to_device(batch, "cpu"))
         params = [p for leaf in jax_leaves(twin.model) for p in leaf.params]
         return list(torch.autograd.grad(loss, params))
@@ -2947,22 +2956,24 @@ def _free_port() -> int:
 
 
 def _shard_rank(rank, world, port, q, cfg, device, batches, root,
-                families, serve_cells):
+                families, serve_cells, model_parallel=0, floor=False):
     """One rank of phases 28 and 29, in a spawned process: joins the NCCL
     group (gloo on the CPU), runs ``shard_runs`` (which runs phase 29's
     ``mesh_serve_runs`` last) and puts its result (or its traceback) on
-    ``q``."""
+    ``q``.  With ``floor`` the collectives wait longer: rank 0 takes the
+    float64 steps on the host while its peers wait in the next one."""
     import traceback
     os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port),
                       RANK=str(rank), WORLD_SIZE=str(world),
                       LOCAL_RANK=str(rank))
     try:
         from repro_torch.launch.mesh import init_distributed
-        init_distributed(device, timeout_s=120.0)
+        init_distributed(device, timeout_s=900.0 if floor else 120.0)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         q.put((rank, True, shard_runs(cfg, device, batches, root,
-                                      families, serve_cells)))
+                                      families, serve_cells,
+                                      model_parallel, floor)))
     except BaseException:
         tb = traceback.format_exc()
         print(f"sharded rank {rank}:\n{tb}", file=sys.stderr, flush=True)
@@ -2973,17 +2984,20 @@ def _shard_rank(rank, world, port, q, cfg, device, batches, root,
     torch.distributed.destroy_process_group()
 
 
-def shard_runs(cfg, device, batches, root, families,
-               serve_cells=()) -> dict:
+def shard_runs(cfg, device, batches, root, families, serve_cells=(),
+               model_parallel=0, floor=False) -> dict:
     """Phase 28's work on one rank: ``cfg`` trained SHARD_STEPS steps
     from the same seeded weights unsharded, on a ("data", "model") mesh
-    under DEFAULT_RULES and FSDP_RULES, and on a ("pod", "data", "model")
-    mesh with ``grad_compression`` (each step's int8 codes, scales and
-    residuals held bit for bit to ``compress_grads_allreduce`` run on the
-    CPU on the grads and residual the step captured); then the DEFAULT
-    run's state saved and restored onto the mesh (``shardings=``) and
-    onto the CPU; then ``family_runs`` for each of ``families``.  Returns
-    what rank 0 compares and measures."""
+    (``make_mesh_for(world, model_parallel=)``) under DEFAULT_RULES and
+    FSDP_RULES, and on a ("pod", "data", "model") mesh with
+    ``grad_compression`` (each step's int8 codes, scales and residuals
+    held bit for bit to ``compress_grads_allreduce`` run on the CPU on
+    the grads and residual the step captured, over gloo groups of the
+    pods' ranks where there are two pods); then the DEFAULT run's
+    state saved and restored onto the mesh (``shardings=``) and onto the
+    CPU; then ``family_runs`` for each of ``families`` (with ``floor``:
+    beside float64 steps on the host).  Returns what rank 0 compares and
+    measures."""
     from torch.distributed.tensor import DTensor
 
     from repro_torch.launch.mesh import make_mesh, make_mesh_for
@@ -2997,16 +3011,36 @@ def shard_runs(cfg, device, batches, root, families,
     rank = torch.distributed.get_rank()
     dsync = sync if device == "cuda" else (lambda: None)
     kw = dict(peak_lr=TRAIN_LR, warmup=1, total_steps=10)
-    mesh2 = make_mesh_for(world, device=device)
+    mesh2 = make_mesh_for(world, model_parallel=model_parallel,
+                          device=device)
     mp = mesh2.mesh.shape[1]
     pods = 2 if world % (2 * mp) == 0 else 1
     mesh3 = make_mesh((pods, world // pods // mp, mp),
                       ("pod", "data", "model"), device)
+    # the plain run of the pods' all-reduce, on the CPU, sums over gloo
+    # groups of the ranks that hold the same shard in each pod, as the
+    # step's pod groups do
+    pod_cpu = None
+    if pods > 1:
+        m = mesh3.mesh
+        pod_cpu, _ = torch.distributed.new_subgroups_by_enumeration(
+            [m[:, d, k].tolist() for d in range(m.shape[1])
+             for k in range(m.shape[2])], backend="gloo")
     out = {"world": world, "mesh2": tuple(mesh2.mesh.shape),
            "mesh3": tuple(mesh3.mesh.shape), "runs": {}}
+    f64 = cfg.dtype == "float64"
+
+    def new_api(device):
+        """``cfg``'s model; a float64 config's float32 parameters (the
+        norm weights) made float64 too."""
+        api = ModelAPI(cfg, device=device)
+        if f64:
+            for p in api.model.parameters():
+                p.data = p.data.double()
+        return api
 
     def train(name, mesh=None, rules=None, compress=False):
-        api = ModelAPI(cfg, device=dev)
+        api = new_api(dev)
         state = init_state(api, torch.Generator(device=dev).manual_seed(0),
                            grad_compression=compress)
         if mesh is not None:
@@ -3018,37 +3052,40 @@ def shard_runs(cfg, device, batches, root, families,
              "code_faults": []}
         if device == "cuda":
             torch.cuda.reset_peak_memory_stats()
-        for b in batches[:SHARD_STEPS]:
-            cap = {} if compress else None
-            dsync()
-            t0 = time.perf_counter()
-            state, m = step(state, to_device(b, dev), cap)
-            r["losses"].append(float(m["loss"]))
-            dsync()
-            r["times"].append(time.perf_counter() - t0)
-            r["norms"].append(float(m["grad_norm"]))
-            if compress:
-                # the CPU's plain run on the step's own grads and residual
-                for path in cap["grads"]:
-                    g = torch.from_numpy(to_host(cap["grads"][path]))
-                    res = torch.from_numpy(to_host(cap["residual"][path]))
-                    codes = {}
-                    _, new_res = compress_grads_allreduce(
-                        {path: g}, {path: res}, None, n_pods=2,
-                        codes=codes)
-                    q_card, s_card = cap["codes"][path]
-                    same = (_bits(to_host(q_card))
-                            == _bits(codes[path][0].numpy())
-                            and _bits(to_host(s_card))
-                            == _bits(codes[path][1].numpy()))
-                    if pods == 1:     # one pod: no cross-pod sum either
-                        same = same and _bits(to_host(
-                            state["residual"][path])) == _bits(
-                            new_res[path].numpy())
-                    r["codes"] += 1
-                    if not same:
-                        r["code_faults"].append(path)
-                del cap
+        # a float64 config computes in float64 throughout: every
+        # ``.float()`` of the model's own float32 steps gives float64
+        f64_compute = mock.patch.object(torch.Tensor, "float", _f64) \
+            if f64 else contextlib.nullcontext()
+        with f64_compute:
+            for b in batches[:SHARD_STEPS]:
+                cap = {} if compress else None
+                dsync()
+                t0 = time.perf_counter()
+                state, m = step(state, to_device(b, dev), cap)
+                r["losses"].append(float(m["loss"]))
+                dsync()
+                r["times"].append(time.perf_counter() - t0)
+                r["norms"].append(float(m["grad_norm"]))
+                if compress:
+                    # the CPU's plain run on the step's own grads and residual
+                    for path in cap["grads"]:
+                        g = torch.from_numpy(to_host(cap["grads"][path]))
+                        res = torch.from_numpy(to_host(cap["residual"][path]))
+                        codes = {}
+                        _, new_res = compress_grads_allreduce(
+                            {path: g}, {path: res}, pod_cpu, n_pods=2,
+                            codes=codes)
+                        q_card, s_card = cap["codes"][path]
+                        same = (_bits(to_host(q_card))
+                                == _bits(codes[path][0].numpy())
+                                and _bits(to_host(s_card))
+                                == _bits(codes[path][1].numpy())
+                                and _bits(to_host(state["residual"][path]))
+                                == _bits(new_res[path].numpy()))
+                        r["codes"] += 1
+                        if not same:
+                            r["code_faults"].append(path)
+                    del cap
         r["peak_gib"] = (torch.cuda.max_memory_allocated() / 2**30
                          if device == "cuda" else 0.0)
         r["dtensors"] = sum(isinstance(p, DTensor)
@@ -3090,7 +3127,7 @@ def shard_runs(cfg, device, batches, root, families,
     t0 = time.perf_counter()
     store.save(SHARD_STEPS, saved_state)
     t_save = time.perf_counter() - t0
-    like_api = ModelAPI(cfg, device=dev)
+    like_api = new_api(dev)
     like = init_state(like_api)
     sh = state_shardings(like_api, like, mesh2, partition.DEFAULT_RULES)
     t0 = time.perf_counter()
@@ -3101,7 +3138,7 @@ def shard_runs(cfg, device, batches, root, families,
     placed = all(isinstance(p, DTensor)
                  for p in like_api.model.parameters())
     del on_mesh, like, like_api
-    cpu_api = ModelAPI(cfg, device="cpu")
+    cpu_api = new_api("cpu")
     t0 = time.perf_counter()
     on_cpu, _ = store.restore(like=init_state(cpu_api))
     t_cpu = time.perf_counter() - t0
@@ -3118,7 +3155,8 @@ def shard_runs(cfg, device, batches, root, families,
     del saved_api, saved_state
     if device == "cuda":
         torch.cuda.empty_cache()
-    out["families"] = {name: family_runs(*spec, dev, mesh2, dsync)
+    out["families"] = {name: family_runs(*spec, dev, mesh2, dsync,
+                                         floor and rank == 0)
                        for name, spec in families.items()}
     t0 = time.perf_counter()
     out["serve"] = mesh_serve_runs(serve_cells, dev, mesh2, dsync)
@@ -3150,15 +3188,49 @@ def rel_l2_chunked(a, b) -> float:
     return (num / max(den, 1e-300)) ** 0.5
 
 
-def family_runs(cfg, B, S, dev, mesh, dsync) -> dict:
+def float64_steps(cfg, dev, data, kw):
+    """``data``'s AdamW steps of ``cfg`` unsharded on the host in float64
+    throughout (``float64_twin``, every ``.float()`` giving float64), from
+    the weights ``family_runs`` draws on ``dev``.  Returns (the final
+    state, on the host; each step's (loss, grad norm))."""
+    api = ModelAPI(cfg, device=dev)
+    api.model.init(torch.Generator(device=dev).manual_seed(0))
+    twin = float64_twin(api)
+    del api
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    state = init_state(twin)
+    step = make_train_step(twin, **kw)
+    metrics = []
+    with mock.patch.object(torch.Tensor, "float", _f64):
+        for b in data:
+            state, m = step(state, {k: v.double() if v.is_floating_point()
+                                    else v for k, v in b.items()})
+            metrics.append((float(m["loss"]), float(m["grad_norm"])))
+    return state, metrics
+
+
+# a mesh run against float64 with ``floor``: within this many times the
+# unsharded float32 run's own distance from float64, per leaf and metric,
+# or SHARD_TOL (ROADMAP queue 3 item aa: float32 rounding alone moves
+# these families by 1e-6-1.2e-5; the gloo tests' ``F32_NOISE_FACTOR``)
+FLOOR_FACTOR = 4.0
+
+
+def family_runs(cfg, B, S, dev, mesh, dsync, floor=False) -> dict:
     """One family of phase 28: ``cfg`` (a ``big_cfg``: full width, cut
     depth), SHARD_FAMILY_STEPS AdamW steps of B x S seeded tokens
     (with seeded patches or frames, ``input_specs``' names) from the same
     seeded weights, unsharded and on ``mesh`` under DEFAULT_RULES.  The
     unsharded final state waits on the device (recurrentgemma-9b's 32 GB
     beside the mesh run's 45 GB peak); the mesh run's is held to it leaf
-    by leaf.  Returns both runs' metrics, step times and peak memory, and
-    the worst leaf."""
+    by leaf.  A MoE's routing is recorded in both runs, each call's
+    (T, k) experts, and the token-layers routed differently are counted
+    (on a mesh a rank routes its own data shard's group of tokens).
+    With ``floor`` the same steps also run in float64 on the host
+    (``float64_steps``) and each leaf of both runs is measured from them.
+    Returns both runs' metrics, step times and peak memory, the worst
+    leaf, the routing flips and the float64 distances."""
     from torch.distributed.tensor import DTensor
 
     from repro_torch.sharding import partition
@@ -3185,7 +3257,7 @@ def family_runs(cfg, B, S, dev, mesh, dsync) -> dict:
         step = make_train_step(api, mesh=mesh, rules=partition.DEFAULT_RULES
                                if mesh is not None else None, **kw)
         r = {"losses": [], "norms": [], "dropped": [], "times": [],
-             "held_gib": 0.0}
+             "held_gib": 0.0, "routes": []}
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats()
             # the mesh run's peak is told net of the unsharded state kept
@@ -3193,10 +3265,12 @@ def family_runs(cfg, B, S, dev, mesh, dsync) -> dict:
         for b in data:
             dsync()
             t0 = time.perf_counter()
-            state, m = step(state, to_device(b, dev))
+            with recording_routes() as log:
+                state, m = step(state, to_device(b, dev))
             r["losses"].append(float(m["loss"]))
             dsync()
             r["times"].append(time.perf_counter() - t0)
+            r["routes"] += log
             r["norms"].append(float(m["grad_norm"]))
             if "moe_dropped" in m:
                 r["dropped"].append(float(m["moe_dropped"]))
@@ -3209,6 +3283,11 @@ def family_runs(cfg, B, S, dev, mesh, dsync) -> dict:
         return api, state, r
 
     t0 = time.perf_counter()
+    ref = None
+    if floor:
+        ref_state, ref_metrics = float64_steps(cfg, dev, data, kw)
+        ref = dict(state_leaves(ref_state))
+        del ref_state
     api, state, plain = run()
     layers = layout(api.model)
     # the unsharded final state stays on the device, without its grads
@@ -3219,10 +3298,22 @@ def family_runs(cfg, B, S, dev, mesh, dsync) -> dict:
         torch.cuda.empty_cache()
     api, state, sharded = run(mesh, torch.cuda.memory_allocated()
                               if dev.type == "cuda" else 0)
-    errs = {path: rel_l2_chunked(t, kept[path])
-            for path, t in state_leaves(state)}
+    errs, far = {}, {}
+    for path, t in state_leaves(state):
+        errs[path] = rel_l2_chunked(t, kept[path])
+        if ref is not None:
+            # (the mesh run's, the unsharded run's) distance from float64
+            far[path] = (rel_l2_chunked(t.cpu(), ref[path]),
+                         rel_l2_chunked(kept[path].cpu(), ref[path]))
     worst = max(errs, key=errs.get)
-    del api, state, kept
+    flips = total = 0
+    for x, y in zip(sharded.pop("routes"), plain.pop("routes")):
+        if len(x) < len(y):          # this rank's group of the tokens
+            i = mesh.get_local_rank("data") * len(x)
+            y = y[i:i + len(x)]
+        flips += route_flips([x], [y])[0]
+        total += len(x)
+    del api, state, kept, ref
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     return {"layout": layers, "B": B, "S": S,
@@ -3230,22 +3321,34 @@ def family_runs(cfg, B, S, dev, mesh, dsync) -> dict:
                       if k in ("patches", "frames")},
             "unsharded": plain, "mesh": sharded,
             "worst": (worst, errs[worst], len(errs)),
+            "flips": (flips, total) if cfg.n_experts else None,
+            "floor": (far, ref_metrics) if floor else None,
             "seconds": time.perf_counter() - t0}
 
 
-def phase_sharded(batches, cfg=None, families=None, serve_cells=None):
+def phase_sharded(batches, cfg=None, families=None, serve_cells=None, *,
+                  family_cfg=None, model_parallel=0, floor=False,
+                  world=None, deadline_s=SHARD_DEADLINE_S):
     """Phase 28: sharded training of smollm-135m at full width on
-    ``torch.cuda.device_count()`` NCCL ranks, one card each (one on a
-    one-card machine), spawned with a deadline: on a hang or a failed rank
-    every rank is killed and the phase fails.  The same ranks then run
-    phase 29's mesh serving (``serve_mesh_cells()`` by default), which
-    ``phase_serve_sharded`` reports."""
+    ``torch.cuda.device_count()`` NCCL ranks (or ``world``), one card
+    each (one on a one-card machine), spawned with a deadline: on a hang
+    or a failed rank every rank is killed and the phase fails.  The same
+    ranks then run phase 29's mesh serving (``serve_mesh_cells()`` by
+    default), which ``phase_serve_sharded`` reports.  ``family_cfg(name,
+    n_layers)`` gives each family's config (``big_cfg`` by default);
+    ``model_parallel`` the "model" axis of the ("data", "model") mesh
+    (``make_mesh_for``).  With ``floor`` each family's mesh run is held to
+    float64 steps on the host within ``FLOOR_FACTOR`` times the unsharded
+    run's own distance from them (ROADMAP queue 3 item aa), its metrics
+    likewise; without it, to the unsharded run within SHARD_TOL."""
     import multiprocessing
     cfg = cfg or get_arch("smollm-135m")
-    families = {name: (big_cfg(name, n), B, S) for name, (n, B, S) in (
+    family_cfg = family_cfg or big_cfg
+    families = {name: (family_cfg(name, n), B, S) for name, (n, B, S) in (
         SHARD_FAMILIES if families is None else families).items()}
     serve_cells = serve_mesh_cells() if serve_cells is None else serve_cells
-    world = torch.cuda.device_count() if CUDA.type == "cuda" else 1
+    if world is None:
+        world = torch.cuda.device_count() if CUDA.type == "cuda" else 1
     root = tempfile.mkdtemp(prefix="zerrow-sharded-")
     ctx = multiprocessing.get_context("spawn")
     q = ctx.Queue()
@@ -3253,19 +3356,18 @@ def phase_sharded(batches, cfg=None, families=None, serve_cells=None):
     b = [{k: np.array(x[k]) for k in ("tokens", "labels")}
          for x in batches[:SHARD_STEPS]]
     procs = [ctx.Process(target=_shard_rank, args=(
-        r, world, port, q, cfg, CUDA.type, b, root, families, serve_cells))
-        for r in range(world)]
+        r, world, port, q, cfg, CUDA.type, b, root, families, serve_cells,
+        model_parallel, floor)) for r in range(world)]
     t0 = time.perf_counter()
     for p in procs:
         p.start()
     results, failure = {}, None
     try:
-        end = t0 + SHARD_DEADLINE_S
+        end = t0 + deadline_s
         while len(results) < world and failure is None:
             left = end - time.perf_counter()
             if left <= 0:
-                failure = f"the ranks outlived the {SHARD_DEADLINE_S} s " \
-                    "deadline"
+                failure = f"the ranks outlived the {deadline_s} s deadline"
                 break
             try:
                 rank, ok, val = q.get(timeout=min(left, 1.0))
@@ -3290,7 +3392,7 @@ def phase_sharded(batches, cfg=None, families=None, serve_cells=None):
     check(failure is None, f"sharded: {failure}")
     out = results[0]
     print(f"sharded: {cfg.name}, {cfg.n_layers} layers, d_model "
-          f"{cfg.d_model}, {cfg.dtype} compute on float32 masters, "
+          f"{cfg.d_model}, {cfg.dtype} compute on {cfg.param_dtype} masters, "
           f"{cfg.optimizer}, B {TRAIN_B} x S {TRAIN_S}, {SHARD_STEPS} "
           f"steps; world size {out['world']} (one NCCL rank a card); "
           f"meshes (data, model) {out['mesh2']} and (pod, data, model) "
@@ -3376,13 +3478,45 @@ def phase_sharded(batches, cfg=None, families=None, serve_cells=None):
         check(plain["dtensors"] == 0 and r["dtensors"] == r["tensors"],
               f"sharded family {name}: {r['tensors'] - r['dtensors']} "
               "parameters off the mesh")
-        check(err <= SHARD_TOL, f"sharded family {name}: {path} {err!r} "
-              f"beyond {SHARD_TOL}")
-        check(all(abs(a - b) <= SHARD_TOL * abs(b) for a, b in zip(
-            r["losses"] + r["norms"] + r["dropped"],
-            plain["losses"] + plain["norms"] + plain["dropped"])),
-            f"sharded family {name}: losses, grad norms or moe_dropped "
-            f"beyond {SHARD_TOL}")
+        if f["flips"] is not None:
+            flips, total = f["flips"]
+            print(f"sharded family {name}: token-layers routed differently "
+                  f"on the mesh than unsharded (rank 0's): {flips} of "
+                  f"{total}")
+            check(flips <= FLIP_MAX * total, f"sharded family {name}: "
+                  f"routing flips {flips} above {FLIP_MAX} of {total}")
+        check(r["dropped"] == plain["dropped"], f"sharded family {name}: "
+              f"moe_dropped {r['dropped']} against {plain['dropped']}")
+        if f["floor"] is None:
+            check(err <= SHARD_TOL, f"sharded family {name}: {path} "
+                  f"{err!r} beyond {SHARD_TOL}")
+            check(all(abs(a - b) <= SHARD_TOL * abs(b) for a, b in zip(
+                r["losses"] + r["norms"], plain["losses"] + plain["norms"])),
+                f"sharded family {name}: losses or grad norms beyond "
+                f"{SHARD_TOL}")
+            continue
+        far, ref = f["floor"]
+        bound = {p: max(SHARD_TOL, FLOOR_FACTOR * e32)
+                 for p, (_, e32) in far.items()}
+        top = sorted(far, key=lambda p: -far[p][0] / bound[p])[:3]
+        print(f"sharded family {name}, against float64 steps on the host: "
+              f"(mesh, unsharded) relative L2 of the leaves nearest their "
+              f"bound: " + ", ".join(f"{p} {far[p]!r}" for p in top)
+              + f"; float64 (loss, grad norm) {ref}")
+        bad = [(p, far[p]) for p in far if far[p][0] > bound[p]]
+        check(not bad, f"sharded family {name}: leaves farther from "
+              f"float64 than max({SHARD_TOL}, {FLOOR_FACTOR} x the "
+              f"unsharded run's distance): {bad[:5]}")
+        for i, (l64, g64) in enumerate(ref):
+            for what, want, a, b in (("loss", l64, r["losses"][i],
+                                      plain["losses"][i]),
+                                     ("grad norm", g64, r["norms"][i],
+                                      plain["norms"][i])):
+                tol = max(SHARD_TOL, FLOOR_FACTOR * abs(b - want)
+                          / abs(want))
+                check(abs(a - want) <= tol * abs(want),
+                      f"sharded family {name}: step {i}'s {what} {a!r} "
+                      f"against float64 {want!r} (unsharded {b!r})")
     return out
 
 

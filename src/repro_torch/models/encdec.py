@@ -32,11 +32,11 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
 from ..configs.base import ArchConfig
-from ..sharding.partition import (constrain, reduce_partial,
-                                  replicated_like, serving)
+from ..sharding.partition import constrain, replicated_like, serving
 from .attention import Attention, attn_axes
-from .layers import MLP, RMSNorm, Spec, mlp_axes, normal_, rms_norm, \
-    softmax_xent, stacked_axes, tied_table, trunc_normal_, zero_caches
+from .layers import MLP, RMSNorm, Spec, embed_lookup, mlp_axes, normal_, \
+    rms_norm, softmax_xent, stacked_axes, tied_table, trunc_normal_, \
+    zero_caches
 
 N_DEC_POS = 4096          # learned decoder positions, taken modulo this
 #: logical axes of each decoder layer's cross k and v in a serve cache
@@ -209,17 +209,7 @@ class EncDecLM(nn.Module):
                  positions=None):
         cfg = self.cfg
         S = tokens.shape[1]
-        # under a mesh the ids are replicated first, as
-        # ``DecoderLM.embed_inputs`` does
-        ids = constrain(tokens, (None,) * tokens.dim())
-        x = F.embedding(ids, tied_table(self.embed)).to(self.cdtype)
-        # the lookup's masked partial sum is resolved before the add: on
-        # torch 2.11 its mask buffer conflicts with the next microbatch's;
-        # and reduced in place first, as ``DecoderLM.embed_inputs`` does:
-        # with the table replicated over "data" (SERVE_RULES) DTensor
-        # shards the batch before it reduces, and the mask of the whole
-        # batch no longer fits (torch 2.13)
-        x = constrain(reduce_partial(x), ("batch", "seq", None))
+        x = embed_lookup(tokens, self.embed, self.cdtype)
         if positions is None:
             positions = replicated_like(
                 torch.arange(S, device=x.device)[None, :], x)

@@ -18,11 +18,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Shard
 
 from ..sharding.partition import (NamedSharding, constrain, current_mesh,
-                                  current_rules, logical_to_spec, pin_grad,
-                                  replicated_like, spec_to_placements,
+                                  current_rules, logical_to_spec, per_shard,
+                                  pin_grad, reduce_partial, replicated_like,
+                                  shard_range, spec_to_placements,
                                   zeros_placed)
 
 
@@ -208,6 +209,51 @@ def tied_table(embed):
     sum the head's grad is ("redistribute from S(1) to P(sum) not
     supported yet")."""
     return constrain(embed, ("vocab", "fsdp"))
+
+
+def embed_lookup(tokens, embed, dtype):
+    """The rows of the embedding table ``embed`` (vocab, d) at the ids
+    ``tokens`` (B, S), in ``dtype``: the JAX package's ``jnp.take``.
+
+    Under a mesh each rank looks up its own batch shard of the ids in its
+    own vocab shard of the table (``per_shard``; the table comes through
+    ``tied_table`` with its "fsdp" dim gathered, as any weight is), with
+    zeros for the ids outside that shard.  The result, a partial sum over
+    the mesh axes that split the vocab, is reduced over those axes alone
+    and placed ("batch", "seq", None).  Each row has one non-zero term,
+    so the sum is exact: the lookup equals the unsharded one bit for bit,
+    and no rank holds more than its batch shard of the output.  The ids
+    keep no mesh axis that splits the vocab (SP_RULES maps "seq" there
+    too): a rank's ids and its rows must meet whole over such an axis.
+    In the backward pass the table's grad leaves ``per_shard`` a partial
+    sum over the axes that split the batch, and ``tied_table`` puts it
+    on the table's own placements, where a tied head's grad meets it."""
+    table = tied_table(embed)
+    if current_mesh() is None:
+        return F.embedding(tokens, table).to(dtype)
+    mesh = table.device_mesh
+    rules = current_rules()
+    vocab = [a for a, p in zip(mesh.mesh_dim_names, table.placements)
+             if p == Shard(0)]
+
+    def mesh_axes(name, n):
+        e = (logical_to_spec((name,), mesh, rules, (n,)) or (None,))[0]
+        return () if e is None else (e,) if isinstance(e, str) else e
+    ids_axes = tuple(None if set(mesh_axes(a, n)) & set(vocab) else a
+                     for a, n in zip(("batch", "seq"), tokens.shape))
+    off, n = shard_range(table, 0)
+
+    def local(ids, rows):
+        if n == table.shape[0]:
+            return F.embedding(ids, rows).to(dtype)
+        ids = ids - off
+        miss = (ids < 0) | (ids >= n)
+        x = F.embedding(ids.clamp(0, n - 1), rows).to(dtype)
+        return x.masked_fill_(miss[..., None], 0)
+    x = per_shard(local, (tokens, table), (ids_axes, ("vocab", None)),
+                  [(ids_axes + (None,), tuple(tokens.shape)
+                    + (table.shape[1],), vocab)])
+    return constrain(reduce_partial(x), ("batch", "seq", None))
 
 
 # --------------------------------------------------------------------------

@@ -38,9 +38,9 @@ from ..configs.base import ArchConfig
 from ..sharding.partition import (constrain, reduce_partial,
                                   replicated_like, serving)
 from .attention import Attention, attn_axes
-from .layers import (MLP, RMSNorm, Spec, dense_init_, mlp_axes, rms_norm,
-                     softmax_xent, stacked_axes, tied_table, trunc_normal_,
-                     zero_caches)
+from .layers import (MLP, RMSNorm, Spec, dense_init_, embed_lookup,
+                     mlp_axes, rms_norm, softmax_xent, stacked_axes,
+                     tied_table, trunc_normal_, zero_caches)
 from .moe import AUX_KEYS, MoE, moe_axes
 from .rglru import RGLRU, rglru_axes
 from .rwkv6 import RWKVBlock, rwkv_channel_axes, rwkv_time_axes
@@ -258,17 +258,7 @@ class DecoderLM(nn.Module):
     def embed_inputs(self, tokens, patches=None):
         """Token embeddings in the compute dtype; with ``patches`` (B, V, d)
         on a vlm model, ``patches @ vision_proj`` before them."""
-        # under a mesh the ids are replicated first (a few bytes a token):
-        # DTensor's masked lookup in a vocab-sharded table builds its
-        # mask from the ids' local shard, and fails when it must also
-        # gather them (torch 2.13)
-        ids = constrain(tokens, (None,) * tokens.dim())
-        x = F.embedding(ids, tied_table(self.embed)).to(self.cdtype)
-        # the lookup's masked partial sum over "vocab" is reduced in place
-        # first: with a table replicated over "data" (SERVE_RULES) DTensor
-        # shards the batch before it reduces, and the mask of the whole
-        # batch no longer fits (torch 2.13); the sums are exact either way
-        x = constrain(reduce_partial(x), ("batch", "seq", None))
+        x = embed_lookup(tokens, self.embed, self.cdtype)
         if self.vision_proj is not None and patches is not None:
             pv = patches.to(self.cdtype) @ self.vision_proj.to(self.cdtype)
             # under a mesh the product comes sharded as vision_proj is

@@ -4,23 +4,30 @@ with the largest storages live at that peak, by the op that made them,
 and the JAX package's ``memory_analysis()`` of the same cell, both cut to
 the same depth (``--no-jax``: the port's alone, at any depth).  Not a
 test (pytest collects ``test_*.py`` only); it lives here because it
-imports both packages.
+imports both packages.  It is also a check: it exits 1 when a storage
+shaped like the global batch's embedding (B, S, d) is live at the port's
+peak, or when the port's temp a device is above twice the JAX package's
+on the same mesh.
 
     PYTHONPATH=src python tests/dryrun_memory.py --arch nemotron-4-340b \\
         --shape prefill_32k --layers 2 --mesh single multi
+
+``port_peak`` imports no JAX (the JAX dry-run, imported by ``jax_memory``
+alone, sets 512 host devices for its process), so a test may call it.
 """
 import argparse
 import collections
 import dataclasses
+import sys
 
-from repro.launch import dryrun as jax_dryrun  # sets 512 host devices
-from repro_torch.configs import get_arch
+from repro_torch.configs import SHAPES_BY_NAME, get_arch
 from repro_torch.launch import dryrun, roofline
 
 
-def port_peak(arch, shape: str, mesh: str, top: int = 6):
+def port_peak(arch, shape: str, mesh: str, top=6):
     """The port's lower_cell on meta, and the largest storages live when
-    its counter reached the peak: [(bytes, count, (op, shape, dtype))]."""
+    its counter reached the peak: [(bytes, count, (op, shape, dtype))],
+    the ``top`` largest (None: all)."""
     made, snap, cur = {}, {}, [None]
     dispatch = roofline.StepCounter.__torch_dispatch__
     track = roofline.StepCounter._track
@@ -58,6 +65,7 @@ def port_peak(arch, shape: str, mesh: str, top: int = 6):
 
 
 def jax_memory(name: str, layers: int, shape: str, mesh: str) -> dict:
+    from repro.launch import dryrun as jax_dryrun  # sets 512 host devices
     get = jax_dryrun.get_arch
     jax_dryrun.get_arch = lambda n: dataclasses.replace(get(n),
                                                         n_layers=layers)
@@ -77,19 +85,31 @@ def main() -> None:
     ap.add_argument("--no-jax", action="store_true")
     args = ap.parse_args()
     arch = dataclasses.replace(get_arch(args.arch), n_layers=args.layers)
+    cell = SHAPES_BY_NAME[args.shape]
+    whole = (cell.global_batch, cell.seq_len, arch.d_model)
+    failed = []
     for mesh in args.mesh:
-        ok, info, top = port_peak(arch, args.shape, mesh)
+        ok, info, live = port_peak(arch, args.shape, mesh, top=None)
+        temp = info["temp_bytes_per_device"]
         print(f"port {args.arch} x {args.shape} x {mesh}, {args.layers} "
               f"layers: ok {ok}, arg {info['arg_bytes_per_device']} B, "
-              f"temp {info['temp_bytes_per_device']} B a device; live at "
-              "the peak:")
-        for b, n, (op, shp, dt) in top:
+              f"temp {temp} B a device; live at the peak:")
+        for b, n, (op, shp, dt) in live[:6]:
             print(f"  {b} B in {n} storage(s) from {op} {shp} {dt}")
+        big = [k for _, _, k in live if k[1] == whole]
+        if big:
+            failed.append(f"{mesh}: {whole} live at the peak: {big}")
         if args.no_jax:
             continue
         jax = jax_memory(args.arch, args.layers, args.shape, mesh)
+        jtemp = jax["temp_bytes_per_device"]
         print(f"jax  {args.arch} x {args.shape} x {mesh}, {args.layers} "
-              f"layers: {jax}")
+              f"layers: {jax}; the port's temp {temp / jtemp:.3f} x JAX's")
+        if temp > 2 * jtemp:
+            failed.append(f"{mesh}: temp {temp} B over twice JAX's "
+                          f"{jtemp} B")
+    print(f"gate: {failed or 'met'}")
+    sys.exit(1 if failed else 0)
 
 
 if __name__ == "__main__":

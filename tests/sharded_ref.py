@@ -125,8 +125,10 @@ def jax_run(opt, batches, accum=ACCUM, seed=0, arch: str = ARCH,
 
 
 def port_run(opt, state, batches, accum=ACCUM, kw=KW, arch: str = ARCH,
-             cfg: dict | None = None, float64: bool = False):
-    """(final state in the JAX layout, per-step metrics) of the port's
+             cfg: dict | None = None, float64: bool = False,
+             capture: bool = False):
+    """(final state in the JAX layout, per-step metrics[, the first
+    step's grads by leaf path as numpy, with ``capture``]) of the port's
     unsharded step from a JAX state; with ``float64`` the weights, inputs
     and compute are float64 (``torch_ranks.float64_compute``)."""
     cfg = dict(cfg or {})
@@ -139,12 +141,17 @@ def port_run(opt, state, batches, accum=ACCUM, kw=KW, arch: str = ARCH,
         double_params(api.model)
     st = train_state_from_jax(state, api.model)
     step = trainstep.make_train_step(api, accum=accum, **kw)
-    metrics = []
+    metrics, grads = [], None
     with float64_compute() if float64 else contextlib.nullcontext():
-        for b in batches:
-            st, m = step(st, {k: torch.from_numpy(v) for k, v in b.items()})
+        for j, b in enumerate(batches):
+            cap = {} if capture and j == 0 else None
+            st, m = step(st, {k: torch.from_numpy(v) for k, v in b.items()},
+                         cap)
             metrics.append({k: float(v) for k, v in m.items()})
-    return train_state_to_jax(st), metrics
+            if cap is not None:
+                grads = {p: g.numpy().copy() for p, g in cap["grads"].items()}
+    out = (train_state_to_jax(st), metrics)
+    return out + (grads,) if capture else out
 
 
 JAX_MESH = r"""

@@ -3,7 +3,9 @@ JAX package's on every arch x shape x production mesh, the cells its
 budget for the H100's 80 GB changes listed; ``lower_cell`` on ``meta``
 for smoke cells on the "single" mesh (256 ranks of a fake process
 group), writing meta.json and counts.json; ``reanalyze`` giving the
-same report from those files; and the command line on a full-size cell.
+same report from those files; the command line on a full-size cell; and
+smollm-135m's ``prefill_32k`` on "single", where each device embeds its
+own batch shard of the tokens alone.
 
 The JAX ``auto_plan`` is read out of ``src/repro/launch/dryrun.py`` and
 run alone: importing that module sets ``XLA_FLAGS`` for 512 host devices
@@ -207,3 +209,29 @@ def test_main_on_a_full_size_cell(tmp_path, monkeypatch, capsys):
     assert meta["params"] == 8_172_695_552 or meta["params"] > 7e9
     assert meta["roofline"]["dominant"] in ("memory", "collective",
                                             "compute")
+
+
+def test_prefill_embeds_each_devices_batch_shard_alone(monkeypatch):
+    """smollm-135m's ``prefill_32k`` on the "single" mesh (16 x 16) on
+    meta: the token lookup's output on a device is its batch shard (B 32
+    over 16 data ranks: 2 rows), and no storage shaped like the global
+    batch's embedding (32, 32768, 576) is live at the counter's peak
+    (``tests/dryrun_memory.py``'s ``port_peak``)."""
+    import dryrun_memory
+
+    from repro_torch.models import lm
+    seen, lookup = [], lm.embed_lookup
+
+    def recording(tokens, embed, dtype):
+        x = lookup(tokens, embed, dtype)
+        seen.append((tuple(x.shape), tuple(x.to_local().shape)))
+        return x
+    monkeypatch.setattr(lm, "embed_lookup", recording)
+    ok, info, live = dryrun_memory.port_peak("smollm-135m", "prefill_32k",
+                                             "single", top=None)
+    cell = configs.SHAPES_BY_NAME["prefill_32k"]
+    whole = (cell.global_batch, cell.seq_len,
+             configs.ARCHS["smollm-135m"].d_model)
+    assert ok and info["rules"] == ["SERVE_RULES"]
+    assert seen == [(whole, (whole[0] // 16,) + whole[1:])]
+    assert live and not [k for _, _, k in live if k[1] == whole]

@@ -41,7 +41,13 @@ Each run is held
   JAX halving loop needs;
 - on every rank: each cache leaf placed by its spec (the KV cache's
   length over "model"), its shard exactly the positions, rows and heads
-  the spec names.
+  the spec names;
+- the token lookup (``LOOKUP_RUNS``: the dense model's
+  ``embed_inputs`` and the whisper decoder's, on (2, 2) and (1, 4)),
+  placed under DEFAULT_RULES, FSDP_RULES, SERVE_RULES and
+  SERVE_BIG_RULES in turn, to the unsharded lookup bit for bit in
+  float32 and bf16, ids on every vocab shard's edges included; each
+  rank holds its batch shard of it alone.
 
 Where JAX cannot be imported the JAX comparisons skip (README.md shows
 the command that hides JAX on a card's host).
@@ -84,6 +90,8 @@ RUNS = {
 }
 #: the runs held to the port unsharded ("moe/drops" drops other pairs)
 EXACT = [n for n in RUNS if n != "moe/drops"]
+#: the runs whose token lookup is also held under every rule set
+LOOKUP_RUNS = ("dense", "dense/1x4", "encdec", "encdec/1x4")
 #: mesh against unsharded, float32: the same sums split over shards (a
 #: row-parallel product's partial sums, the split-K's parts)
 MESH_TOL = 1e-5
@@ -102,6 +110,17 @@ def weights(arch, cfg, seed):
     return api, params_to_jax(api.model)
 
 
+def lookup_ids(cfg, rng):
+    """(B, S) seeded ids over the whole vocab, with the first and last
+    id of every shard a model axis of 2 or 4 cuts first."""
+    ids = rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)
+    edges = sorted({e for n in (2, 4) for k in range(n)
+                    for e in (k * cfg.vocab // n,
+                              (k + 1) * cfg.vocab // n - 1)})
+    ids[0, :len(edges)] = edges
+    return ids
+
+
 def prompt_inputs(cfg, rng) -> dict:
     """Seeded normals for a vlm's patches (B, V, d) or an enc-dec's frames
     (B, CACHE, d): its cross cache holds CACHE frames, which the serve
@@ -118,6 +137,7 @@ def prompt_inputs(cfg, rng) -> dict:
 @pytest.fixture(scope="module")
 def results(tmp_path_factory):
     rng = np.random.default_rng(27)
+    lookup_rng = np.random.default_rng(31)
     runs, apis = [], {}
     for i, (name, (arch, shape, rules, cfg)) in enumerate(RUNS.items()):
         api, params = weights(arch, cfg, seed=i)
@@ -128,6 +148,8 @@ def results(tmp_path_factory):
                          tokens=rng.integers(
                              1, 256, (B, 1 if api.cfg.is_encdec else S)
                          ).astype(np.int32)))
+        if name in LOOKUP_RUNS:
+            runs[-1]["lookup"] = lookup_ids(api.cfg, lookup_rng)
     group = torch_ranks.Ranks(torch_ranks.serve_runs, 4, runs,
                               deadline_s=DEADLINE_S)
     jax_mesh = ref.JaxMeshServe(
@@ -141,6 +163,9 @@ def results(tmp_path_factory):
             logits=logits, tokens=toks, dropped=dropped, routes=routes,
             caches=torch_ranks.cache_report(apis[r["name"]], caches, None,
                                             None)[2])
+        if "lookup" in r:
+            plain[r["name"]]["lookup"] = torch_ranks.lookup_bits(
+                apis[r["name"]], r["lookup"])
     out = {"plain": plain, "runs": {r["name"]: r for r in runs}}
     if jax_mesh is not None:
         out["jax"] = jax_mesh.results()
@@ -226,6 +251,24 @@ def test_mesh_serving_matches_jax_under_the_mesh(name, jax_results):
         assert rel(a, b) <= ref.TRAJ_TOL, (i, rel(a, b))
     jtoks = np.stack([x[:, -1].argmax(-1) for x in jlogits[:-1]], 1)
     np.testing.assert_array_equal(got["tokens"], jtoks)
+
+
+@pytest.mark.parametrize("name", LOOKUP_RUNS)
+def test_mesh_lookup_equals_the_unsharded_lookup_bit_for_bit(name, results):
+    want = results["plain"][name]["lookup"]
+    shape, _ = results["runs"][name]["mesh"]
+    d = configs.smoke_variant(configs.ARCHS[RUNS[name][0]]).d_model
+    for rank, out in enumerate(results["ranks"]):
+        got = out[name]["lookup"]
+        assert sorted(got) == sorted(torch_ranks.LOOKUP_RULES)
+        for rules, bits in got.items():
+            # the batch over "data", or over every rank under FSDP_RULES
+            rows = B // (shape[0] * (shape[1] if rules == "FSDP_RULES"
+                                     else 1))
+            for dt in ("float32", "bfloat16"):
+                np.testing.assert_array_equal(
+                    bits[dt], want[dt], err_msg=f"{rules} {dt} rank {rank}")
+                assert bits[f"{dt}/local"] == (rows, S, d), (rules, dt)
 
 
 @pytest.mark.parametrize("name", list(RUNS))

@@ -536,16 +536,68 @@ def cache_report(api, caches, mesh, rules) -> tuple:
     return faults, specs, whole
 
 
+#: the rule sets the token lookup is held under, on every mesh
+LOOKUP_RULES = ("DEFAULT_RULES", "FSDP_RULES", "SERVE_RULES",
+                "SERVE_BIG_RULES")
+LOOKUP_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def lookup_bits(api, ids, mesh=None, rules=None) -> dict:
+    """{dtype name: the raw bits (an int array) of the token embedding of
+    ``ids`` (B, S) in that dtype}, gathered whole: a decoder LM's
+    ``embed_inputs`` (its compute dtype patched), an enc-dec decoder's
+    ``embed_lookup`` of its table.  On ``mesh`` under ``rules`` (a
+    name) the float32 weights are first placed by ``param_axes`` and the
+    ids by ("batch", "seq"); the local shape of each rank's output is
+    kept beside the bits ("local")."""
+    from repro_torch.launch import dryrun
+    from repro_torch.models.convert import place_params
+    from repro_torch.models.layers import embed_lookup
+    from repro_torch.sharding import partition
+    model = api.model
+    ids = torch.from_numpy(ids)
+    ctx = contextlib.nullcontext()
+    if mesh is not None:
+        r = getattr(partition, rules)
+        specs = dryrun._param_specs(api)
+        place_params(model, partition.shardings_for_tree(
+            model.param_axes(), mesh, r, specs), specs)
+        ids = partition.distribute(ids, partition.NamedSharding(
+            mesh, partition.logical_to_spec(("batch", "seq"), mesh, r,
+                                             tuple(ids.shape))))
+        ctx = partition.use_mesh(mesh, r)
+    out, cdtype = {}, model.cdtype
+    with ctx, torch.no_grad():
+        for dt in LOOKUP_DTYPES:
+            if api.cfg.is_encdec:
+                x = embed_lookup(ids, model.embed, dt)
+            else:
+                model.cdtype = dt
+                try:
+                    x = model.embed_inputs(ids)
+                finally:
+                    model.cdtype = cdtype
+            name = str(dt)[6:]
+            if mesh is not None:
+                out[f"{name}/local"] = tuple(x.to_local().shape)
+            x = partition.unshard(x)
+            bits = torch.int32 if dt == torch.float32 else torch.int16
+            out[name] = x.view(bits).numpy().copy()
+    return out
+
+
 def serve_runs(rank, world, runs):
     """Each run: {"name", "arch", "cfg" (overrides of its smoke variant),
     "mesh": (shape, names), "rules", "params" (the JAX layout, numpy),
     "tokens" (B, S) int32, "cache" (positions), "steps"[, "extra": the
-    patches or frames]}: ``serve_once`` on the mesh from those weights,
-    then ``cache_report``.  Returns
+    patches or frames][, "lookup": ids (B, S)]}: ``serve_once`` on the
+    mesh from those weights, then ``cache_report``; with "lookup", then
+    ``lookup_bits`` of those ids under each of ``LOOKUP_RULES``.  Returns
     {name: {"logits", "tokens", "caches" (gathered; rank 0 alone keeps
     the arrays), "specs", "faults", "dropped", "routes", "coord" (this
-    rank's mesh coordinate), "seconds"}}; the meshes are made once per
-    shape, in the runs' order, on every rank."""
+    rank's mesh coordinate), "seconds"[, "lookup": {rules: the bits}]}};
+    the meshes are made once per shape, in the runs' order, on every
+    rank."""
     import dataclasses
     import time
 
@@ -576,4 +628,8 @@ def serve_runs(rank, world, runs):
             caches=whole if keep else None, specs=specs, faults=faults,
             dropped=dropped, routes=routes, seconds=seconds,
             coord=tuple(mesh.get_coordinate()))
+        if "lookup" in r:
+            out[r["name"]]["lookup"] = {
+                rn: lookup_bits(api, r["lookup"], mesh, rn)
+                for rn in LOOKUP_RULES}
     return out
