@@ -9,18 +9,23 @@
    each for sm_90a, all started together (each one's set-up time).  The
    tensor-core instructions (HMMA, HGMMA) of each flash and wkv6
    instantiation are counted in the built library (``cuobjdump -sass``):
-   the run fails if a bf16 instantiation has none.  Each instantiation's
-   registers, shared memory, spills and resident blocks per SM, as the
-   card reports them; for every segreduce kernel, what ptxas reported
+   the run fails if a bf16 flash instantiation or any wkv6 one (both
+   dtypes run the chunked form on the tensor cores) has none.  Each
+   instantiation's registers, shared memory, spills and resident blocks
+   per SM, as the card reports them: one with local memory fails, as
+   does a float32 flash one with fewer than 8 warps an SM; for every
+   segreduce kernel, what ptxas reported
    (``-Xptxas -v``: registers, shared memory, spills; a spill fails).
 3. Flash attention: held against its plain PyTorch version
    (``ref.attention_ref``) on the same CUDA tensors, at the serving shape
    and at the tile edges (ragged and cross lengths, every head dim, G 3 to
    16, a window whose first tile is not tile 0, strided and unaligned q;
-   hd 192 at nemotron-4-340b's prefill shape, in bf16 and float32);
-   timed at the serving shape from the card's clock beside PyTorch's
-   ``scaled_dot_product_attention`` (timed only; the port never calls it)
-   and the kernel's bound.
+   hd 192 at nemotron-4-340b's prefill shape, in bf16 and float32; the
+   float32 kernel's tile edges at every head dim and a q whose base is
+   not 16-byte aligned);
+   timed at the serving shape, in bf16 and in float32, from the card's
+   clock beside PyTorch's ``scaled_dot_product_attention`` in the same
+   dtype (timed only; the port never calls it) and the kernel's bound.
 4. Serve: smollm-135m at full width (30 layers, d_model 576, random
    weights drawn on the card from a seeded CUDA generator) through
    ``ModelAPI`` + ``ServeEngine``, 2 rounds of batch 8, prompts of 256-512
@@ -64,7 +69,8 @@
    whose base is not 16-byte aligned (staged element by element); then timed
    at the serving shapes of the two
    models below from CUDA-graph replays, beside the plain version, the
-   bound and, for attention, ``scaled_dot_product_attention``.
+   bound and, for attention, ``scaled_dot_product_attention``; wkv6 and
+   flash also on float32 inputs.
 8. Serve rwkv6-3b at full width (32 layers, d_model 2560, 40 heads of 64,
    random weights drawn on the card from a seeded CUDA generator): 2 rounds
    of batch 8, prompts of 256-512 tokens, max_seq 1024, 32 new tokens; 32
@@ -188,7 +194,7 @@
     float32 with capacity factor n_experts / top_k, so that no pair drops
     (decode's T = B tokens have capacity 1 at the served 1.25).  A profiled
     warm round.  Then flash timed at that prefill shape (B 8, S = T 512,
-    H 32, KV 4, hd 128) as in phase 3.
+    H 32, KV 4, hd 128) as in phase 3, in bf16 and float32.
 21. Train qwen3-moe-30b-a3b at full width and 4 layers (3.11 B
     parameters), B 2 x S 1024, as phase 18, with the MoE metrics of each
     step printed and finite; in the card-against-CPU step at 2 layers the
@@ -390,7 +396,8 @@ NEMOTRON_SHAPE = dict(B=8, S=512, T=512, H=96, KV=8, hd=192)
 # partly cancel: tests/test_torch_flash_numerics.py measures at most one
 # bf16 ulp of the output (0.0156 at |out| up to 4), so one output ulp
 # still dominates the error and the bound stays 2e-2.
-# f32: the FMA kernel; the two sum up to T = 512 terms in different
+# f32: the float32 kernel's FMAs (its scores' depth summed in parts across
+# lanes) and the plain version sum up to T = 512 terms in different
 # orders; the worst case is T * 2^-24 * max|v| ~ 1.2e-4 at |v| <= 4.
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 # Prefill logits, kernel vs the model's plain attention (chunked_attention,
@@ -577,11 +584,18 @@ def phase_build() -> dict:
             (build.CSRC / f"{name}.cu").read_bytes()).hexdigest()
         print(f"built {name} (nvcc, sm_90a) and loaded it in {t:.1f} s; "
               f"source sha256 {digest[:16]}")
-    return {"flash_attention": instantiations(
-                "flash_attention", "flash_fwd_bf16_kernel", "hd",
-                flash_attention.SUPPORTED_HD),
-            "wkv6": instantiations("wkv6", "wkv6_chunk_bf16_kernel", "N",
-                                   wkv6.SUPPORTED_N),
+    flash = instantiations("flash_attention", "flash_fwd_bf16_kernel", "hd",
+                           flash_attention.SUPPORTED_HD, (torch.bfloat16,))
+    for i in flash["instantiations"]:
+        warps = i["blocks_per_sm"] * i["threads"] // 32
+        check(i["dtype"] != "float32" or warps >= 8,
+              f"flash_attention float32 hd {i['hd']}: {warps} warps an SM "
+              "(at least 8 wanted)")
+    # both wkv6 instantiations run their products on the tensor cores
+    return {"flash_attention": flash,
+            "wkv6": instantiations("wkv6", "13__nv_bfloat16", "N",
+                                   wkv6.SUPPORTED_N,
+                                   (torch.bfloat16, torch.float32)),
             "segreduce": dict(ptxas=segreduce_ptxas())}
 
 
@@ -606,11 +620,11 @@ def segreduce_ptxas() -> list:
     return rows
 
 
-def tensor_core_counts(lib, bf16_kernel: str, dim: str) -> dict:
+def tensor_core_counts(lib, bf16_marker: str, dim: str) -> dict:
     """HMMA and HGMMA instructions in each kernel of the built library
-    ``lib`` (``cuobjdump -sass``), by its dtype (``bf16_kernel`` names the
-    bf16 kernel) and its template size ``dim``: {"bfloat16 hd 64": n,
-    ...}."""
+    ``lib`` (``cuobjdump -sass``), by its dtype (``bf16_marker`` is in the
+    mangled name of every bf16 instantiation and of no other) and its
+    template size ``dim``: {"bfloat16 hd 64": n, ...}."""
     tool = shutil.which("cuobjdump") or os.path.join(
         os.path.dirname(build.nvcc()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
@@ -620,7 +634,7 @@ def tensor_core_counts(lib, bf16_kernel: str, dim: str) -> dict:
         m = re.search(r"Function : (\S+)", line)
         if m:
             size = re.search(r"Li(\d+)EE", m.group(1))
-            kind = "bfloat16" if bf16_kernel in m.group(1) else "float32"
+            kind = "bfloat16" if bf16_marker in m.group(1) else "float32"
             cur = f"{kind} {dim} {size.group(1) if size else '?'}"
             counts.setdefault(cur, 0)
         elif cur is not None and re.search(r"\b(HMMA|HGMMA)\b", line):
@@ -628,11 +642,13 @@ def tensor_core_counts(lib, bf16_kernel: str, dim: str) -> dict:
     return counts
 
 
-def instantiations(name: str, bf16_kernel: str, dim: str, sizes) -> dict:
+def instantiations(name: str, bf16_marker: str, dim: str, sizes,
+                   on_tensor_cores) -> dict:
     """Tensor-core instructions in the built library of ``name``, and
     what the card reports for each instantiation (``build.kernel_attrs``);
-    fails if a bf16 one has no tensor-core instruction."""
-    counts = tensor_core_counts(build.library_path(name), bf16_kernel, dim)
+    fails if one has local memory (spills), or if one of a dtype in
+    ``on_tensor_cores`` has no tensor-core instruction."""
+    counts = tensor_core_counts(build.library_path(name), bf16_marker, dim)
     print(f"{name} tensor-core instructions (HMMA/HGMMA in SASS): {counts}")
     insts = []
     for dtype in (torch.bfloat16, torch.float32):
@@ -643,12 +659,14 @@ def instantiations(name: str, bf16_kernel: str, dim: str, sizes) -> dict:
             insts.append(dict(dtype=str(dtype)[6:], **{dim: size},
                               tensor_core_instructions=n, **attrs))
             print(f"{name} {label}: {n} tensor-core instructions, {attrs}")
-            if dtype == torch.bfloat16:
+            check(attrs["local_bytes"] == 0,
+                  f"{name} {label}: {attrs['local_bytes']} bytes of local "
+                  "memory")
+            if dtype in on_tensor_cores:
                 check(n > 0, f"{name} {label}: no HMMA/HGMMA instruction in "
                       "the built kernel")
     return dict(tensor_core_instructions=sum(
-        i["tensor_core_instructions"] for i in insts
-        if i["dtype"] == "bfloat16"), instantiations=insts)
+        i["tensor_core_instructions"] for i in insts), instantiations=insts)
 
 
 def phase_kernel_vs_plain():
@@ -701,6 +719,19 @@ def phase_kernel_vs_plain():
         ("hd 192 window 96, S=T 1000 f32", dict(NEMOTRON_SHAPE, B=1, S=1000,
                                                 T=1000, H=24, KV=2),
          torch.float32, True, 96),
+        # the float32 kernel's tile edges (BQ 64-128; BK 16 up to hd 32,
+        # else 32) at every other head dim, and its element-wise staging
+        ("hd 16 f32 ragged cross non-causal window 48",
+         dict(sv, B=2, S=100, T=130, H=4, KV=2, hd=16), torch.float32,
+         False, 48),
+        ("hd 32 f32", dict(sv, H=4, KV=2, hd=32), torch.float32, True, 0),
+        ("hd 64 f32 window 128, S=T 1000 (first tile past 0)",
+         dict(sv, B=1, S=1000, T=1000), torch.float32, True, 128),
+        ("hd 256 G 16 f32 ragged non-causal",
+         dict(sv, B=2, S=77, T=150, H=16, KV=1, hd=256), torch.float32,
+         False, 0),
+        ("offset q (one element into its buffer) f32",
+         dict(sv, B=2, S=200, T=200), torch.float32, True, 0),
     ]
     errs = {}
     for i, (name, shp, dtype, causal, window) in enumerate(cases):
@@ -709,6 +740,9 @@ def phase_kernel_vs_plain():
             q = F.pad(q, (0, 0, 0, 1))[:, :, :shp["H"]]
         elif name.startswith("unaligned q"):   # strides of hd + 4 elements
             q = F.pad(q, (0, 4))[..., :shp["hd"]]
+        elif name.startswith("offset q"):   # base and strides off 16 bytes
+            q = F.pad(q, (1, 4))[..., 1:shp["hd"] + 1]
+            check(q.data_ptr() % 16 != 0, "flash: the offset q is aligned")
         out = ops.flash_attention(q, k, v, causal=causal, window=window)
         want = ref.attention_ref(q, k, v, causal=causal, window=window)
         sync()
@@ -823,9 +857,8 @@ def phase_profile(engine, reqs):
 
 
 # the hand-written kernels a served model launches, as the profiler names them
-OWN_KERNEL_RE = re.compile(r"\b(flash_fwd_kernel|flash_fwd_bf16_kernel"
-                           r"|wkv6_kernel|wkv6_chunk_bf16_kernel"
-                           r"|rglru_scan_kernel)\b")
+OWN_KERNEL_RE = re.compile(r"\b(flash_fwd_f32_kernel|flash_fwd_bf16_kernel"
+                           r"|wkv6_chunk_kernel|rglru_scan_kernel)\b")
 
 
 def profile_run(fn, label: str, top: int = 6) -> dict:
@@ -1732,15 +1765,15 @@ HD256_SHAPES = {"serving": dict(B=8, S=512, H=16, KV=1, hd=256),
                 "long": dict(B=1, S=3072, H=16, KV=1, hd=256)}
 WINDOW = 2048
 # wkv6: f32 out and state differ from the plain version by the order of
-# the sums over n (the kernel folds 64 products in 2 chains and 4 lanes,
-# the plain einsum in cuBLAS's order) and by fused multiply-adds: ~1e-6
-# relative, 1e-4 as in tests/test_kernels.py; a bf16 output is that value
-# rounded once, so it may differ by one bf16 ulp (2^-8 relative): 2e-2.
-# The bf16 kernel's chunked form (f32 operands in three bf16 parts on the
-# tensor cores) keeps its state within 1.5e-5 of 1 + |S| in the plain
-# twin's worst case, w near 1 over 512 tokens, and rounds no more outputs
-# wrongly than the f32 oracle (tests/test_torch_wkv6_numerics.py): the
-# state stays at 1e-4 in every dtype.
+# the sums (the kernel's chunked form on the tensor cores, every f32
+# operand in three bf16 parts, v too in float32; the plain einsum in
+# cuBLAS's order): about 2^-24 of each product, 1e-4 as in
+# tests/test_kernels.py; a bf16 output is that value rounded once, so it
+# may differ by one bf16 ulp (2^-8 relative): 2e-2.  The kernel keeps its
+# state within 1.5e-5 of 1 + |S| in the plain twin's worst case, w near 1
+# over 512 tokens, and rounds no more outputs wrongly than the f32 oracle
+# in either dtype (tests/test_torch_wkv6_numerics.py): the state stays at
+# 1e-4 in every dtype.
 WKV_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # rglru_scan rounds its product and sum separately, as the plain `a * h +
 # b` does, so it is held bit for bit (tolerance 0).
@@ -1891,32 +1924,37 @@ def phase_recurrent_times() -> dict:
     kern, pl = timed_pair(lambda: ops.wkv6(r, k, v, w, u, st),
                           lambda: ref.wkv6_ref(r, k, v, w, u, st),
                           plain_iters=2)
-    # the output like r and the final state written
+    # the output like r and the final state written; both instantiations
+    # run their products on the tensor cores
     flops, nbytes, _ = costs.wkv6(r, k, v, w, u, st)
-    # the bf16 kernel's products run on the tensor cores; the float32
-    # kernel's on the CUDA cores
     bound_ms, by = bound(nbytes, flops, BF16_FLOP_PER_S)
-    f32_bound_ms, f32_by = bound(nbytes, flops, F32_FLOP_PER_S)
     ms = statistics.median(kern)
     # one batch row: 40 blocks, at most one an SM, so each block runs
-    # alone; and the float32 kernel on the same values in float32
+    # alone; and the kernel on the same values in float32, whose bound
+    # counts its float32 r, k, v and output
     one = time_ms(lambda: ops.wkv6(r[:1], k[:1], v[:1], w[:1], u, st[:1]))
     r32, k32, v32 = (x.float() for x in (r, k, v))
-    f32 = time_ms(lambda: ops.wkv6(r32, k32, v32, w, u, st))
+    f32, f32_pl = timed_pair(lambda: ops.wkv6(r32, k32, v32, w, u, st),
+                             lambda: ref.wkv6_ref(r32, k32, v32, w, u, st),
+                             plain_iters=2)
+    flops32, nbytes32, _ = costs.wkv6(r32, k32, v32, w, u, st)
+    f32_bound_ms, f32_by = bound(nbytes32, flops32, BF16_FLOP_PER_S)
     res["wkv6"] = dict(ms=ms, plain_ms=statistics.median(pl),
                        bound_ms=bound_ms, bound_by=by, library_ms=None,
                        one_row_ms=statistics.median(one),
-                       f32_ms=statistics.median(f32),
-                       f32_bound_ms=f32_bound_ms)
+                       float32=dict(ms=statistics.median(f32),
+                                    plain_ms=statistics.median(f32_pl),
+                                    bound_ms=f32_bound_ms, bound_by=f32_by,
+                                    library_ms=None))
     print(f"wkv6 at {tuple(r.shape)} bf16 (w f32, state f32), ms per call: "
           f"kernel {spread(kern)}, plain {spread(pl)}; bound {bound_ms!r} ms"
           f" by {by} ({nbytes} bytes, {flops} flop at {BF16_FLOP_PER_S:.3g}"
           f"/s on the tensor cores), kernel at {bound_ms / ms:.4f} of it; "
-          f"one batch row (B 1, a block an SM) {spread(one)}; the float32 "
-          f"kernel on float32 r, k, v {spread(f32)}, its bound "
-          f"{f32_bound_ms!r} ms by {f32_by} (the same flop at "
-          f"{F32_FLOP_PER_S:.3g}/s on the CUDA cores); no PyTorch call "
-          f"computes it [{smi}]")
+          f"one batch row (B 1, a block an SM) {spread(one)}; on float32 "
+          f"r, k, v: kernel {spread(f32)}, plain {spread(f32_pl)}, bound "
+          f"{f32_bound_ms!r} ms by {f32_by} ({nbytes32} bytes), kernel at "
+          f"{f32_bound_ms / statistics.median(f32):.4f} of it; no PyTorch "
+          f"call computes it [{smi}]")
 
     B, S, W = (LRU_SHAPE[x] for x in "BSW")
     a = torch.rand(B, S, W, generator=g, device=CUDA)
@@ -1933,9 +1971,10 @@ def phase_recurrent_times() -> dict:
           f"{spread(kern)}, plain {spread(pl)}; bound {bound_ms!r} ms by {by}"
           f" ({nbytes} bytes); no PyTorch call computes it [{smi}]")
 
-    for label, shp in HD256_SHAPES.items():
+    for (label, shp), dtype in itertools.product(
+            HD256_SHAPES.items(), (torch.bfloat16, torch.float32)):
         B, S, H, KV, hd = (shp[x] for x in ("B", "S", "H", "KV", "hd"))
-        q, k, v = attn_inputs(S + 1, T=S, dtype=torch.bfloat16, **shp)
+        q, k, v = attn_inputs(S + 1, T=S, dtype=dtype, **shp)
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         pos = torch.arange(S, device=CUDA)
         mask = (pos[None, :] <= pos[:, None]) \
@@ -1951,15 +1990,17 @@ def phase_recurrent_times() -> dict:
             lambda: ref.attention_ref(q, k, v, window=WINDOW), plain_iters=5)
         lib = time_ms(library, iters=5, reps=5)
         pairs = int(mask.sum())                  # visible (query, key) pairs
-        flops, nbytes, _ = costs.flash_attention(q, k, v, window=WINDOW)
+        flops, nbytes, tc = costs.flash_attention(q, k, v, window=WINDOW)
         check(flops == 4 * B * H * hd * pairs, "flash's count of the "
               "window's visible pairs")
-        bound_ms, by = bound(nbytes, flops, BF16_FLOP_PER_S)
-        res[f"flash_hd256_{label}"] = dict(
+        bound_ms, by = bound(nbytes, flops, BF16_FLOP_PER_S if tc
+                             else F32_FLOP_PER_S)
+        kind = str(dtype)[6:]
+        res[f"flash_hd256_{label}" + ("" if tc else "_float32")] = dict(
             shape=[B, S, H, KV, hd], window=WINDOW, ms=statistics.median(kern),
             plain_ms=statistics.median(pl), bound_ms=bound_ms, bound_by=by,
             library_ms=statistics.median(lib))
-        print(f"flash hd 256 [{label}] at {tuple(q.shape)} KV {KV} bf16 "
+        print(f"flash hd 256 [{label}] at {tuple(q.shape)} KV {KV} {kind} "
               f"causal window {WINDOW}, ms per call: kernel {spread(kern)}, "
               f"plain {spread(pl)}, library (sdpa, boolean mask) "
               f"{spread(lib)} (max_abs_err vs plain {lib_err!r}); bound "
@@ -2265,7 +2306,9 @@ def kernel_vs_plain_prefill(api, tokens, shape, plain_patches, what: str,
               f"logits: rel L2 {floor[0]!r}, max |diff| / max |logit| "
               f"{floor[1]!r}; float32 bounds (the larger of "
               f"{LOGIT_TOL[f32]!r} and twice the floor) {tol32[0]!r} (L2), "
-              f"{tol32[1]!r} (max)")
+              f"{tol32[1]!r} (max); the kernels' float32 vs float64: rel L2 "
+              f"{rel_l2(logits[f32], f64)!r}, max |diff| / max |logit| "
+              f"{rel_max(logits[f32], f64)!r}")
         del f64
     sync()
     compare_logits(logits[f32], logits[f32, "plain"], tol32,
@@ -4675,6 +4718,8 @@ def main() -> int:
     insts = timed("phase 2", phase_build)
     max_err, hd128_err, hd192_err = timed("phase 3", phase_kernel_vs_plain)
     times = timed("phase 3 times", phase_times)
+    f32_times = {"hd 64": timed("phase 3 times, float32", phase_times,
+                                SERVE_SHAPE, True, torch.float32)}
     launches = timed("phase 4", phase_serve)
     rel_err = timed("phase 5", phase_relational_vs_plain)
     rel_times = timed("phase 5 times", phase_relational_times)
@@ -4721,6 +4766,8 @@ def main() -> int:
     rgemma_launches = timed("phase 9", phase_serve_rgemma)
     moe_launches = timed("phase 20", phase_serve_moe)
     hd128_times = timed("phase 20 times", phase_times, MOE_SHAPE)
+    f32_times["hd 128"] = timed("phase 20 times, float32", phase_times,
+                                MOE_SHAPE, True, torch.float32)
     family = timed("phase 22", phase_flash_family_shapes)
     family_launches = {name: timed(f"phase {n}", phase_serve_family, name)
                        for n, name in ((23, "internvl2-26b"),
@@ -4741,6 +4788,10 @@ def main() -> int:
                    **{f"dry-run {k}": dry[k]["launches"]["flash_attention"]
                       for k in DRYRUN_CELLS},
                    **prompt_flash}
+    f32_times["hd 192"] = hd192_times["float32"]
+    for label in HD256_SHAPES:
+        f32_times[f"hd 256 {label}"] = rec_times[
+            f"flash_hd256_{label}_float32"]
     kernels = [dict(
         name="flash_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -4750,6 +4801,7 @@ def main() -> int:
         hd256=dict(max_abs_err=rec_err["flash_hd256"],
                    serving=rec_times["flash_hd256_serving"],
                    long=rec_times["flash_hd256_long"]),
+        float32=f32_times,
         hd128=dict(max_abs_err=hd128_err, serving=hd128_times,
                    shape=MOE_SHAPE),
         hd192=dict(max_abs_err=hd192_err, shape=NEMOTRON_SHAPE,

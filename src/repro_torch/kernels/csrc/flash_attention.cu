@@ -41,12 +41,21 @@
 // Tiles (Bf16Tiles): see the table there for the choice, the shared
 // memory and ptxas's registers and spills.
 //
-// float32: the first kernel (flash_fwd_kernel), the same code, written for
-// float alone now that bf16 has its own kernel: both products as f32 FMAs
-// out of shared memory, 4 warps, 64 x 64 tiles; at hd 256 a
-// block takes 213,760 bytes of dynamic shared memory (one block per SM)
-// and ptxas gives a thread 240 registers with no spills (CUDA 12.8); at
-// hd 192, 164,608 bytes.
+// float32: FMAs on the CUDA cores (flash_fwd_f32_kernel), float32
+// throughout, bound by its operations (67 TFLOP/s: nemotron-4-340b's
+// prefill at hd 192 does 77.3 GFLOP, 1.154 ms).  To keep the FMA units fed
+// from shared memory, each lane sums an 8 x 8 block of scores (and an 8 x
+// TC block of O) from 16-byte loads, 4 FMAs for every float it reads
+// (4.8 at hd 192); where the block's K and V tiles leave too few scores
+// for 8 x 8 a lane (every head dim but 16), the lanes of a row group split
+// Q K^T's depth and sum their partial blocks by a reduce-scatter of warp
+// shuffles, which leaves each lane whole rows for the softmax.  P goes to
+// shared memory and is read back by the same warp.  K and V are staged by
+// 16-byte cp.async into a two-stage ring as in bf16 (one barrier a tile),
+// and the KV range, the masks of the edge tiles only, the heaviest-first
+// order and the unaligned staging are the bf16 kernel's; a warp also skips
+// the tiles in which none of its own rows sees a key.  Tiles (F32Tiles):
+// at least 8 warps an SM at every head dim; see the table there.
 //
 // Head dims: 16, 32, 64, 128, 192 and 256 (with_hd), those of every
 // configured arch with attention; any other is refused.
@@ -56,11 +65,11 @@
 // turn into NaN; with -1e30 the junk it gathers is wiped by the later
 // alpha = exp(m_prev - m_new) = 0), and the output is acc / max(l, 1e-30)
 // in q's dtype.  Keys past T (the ragged edge) get -inf, so they add
-// exactly nothing.  The bf16 kernel works in base 2: log2(e) is folded into
-// the scale and exp2f takes the place of exp, which changes nothing but the
-// last bits.  It rounds P to bf16 before the P V product, as the JAX
-// model's chunked_attention and every tensor-core flash kernel do; l sums
-// the unrounded f32 P.  That rounding costs about one bf16 ulp of the
+// exactly nothing.  Both kernels work in base 2: log2(e) is folded into the
+// scale and exp2f takes the place of exp, which changes nothing but the
+// last bits.  The bf16 kernel rounds P to bf16 before the P V product, as
+// the JAX model's chunked_attention and every tensor-core flash kernel do;
+// l sums the unrounded f32 P.  That rounding costs about one bf16 ulp of the
 // output (tests/test_torch_flash_numerics.py).
 
 #include <cuda_bf16.h>
@@ -72,187 +81,7 @@
 
 namespace {
 
-
-constexpr int BQ = 64;         // query rows per block
-constexpr int BK = 64;         // keys per KV tile
-constexpr int NTHREADS = 128;  // 4 warps; warp w owns query rows 16w..16w+15
 constexpr float NEG_INF = -1e30f;
-
-template <int HD>
-constexpr size_t smem_bytes() {
-  // sQ (BQ x HD+1), sK (BK x HD+1), sV (BK x HD), sP (BQ x BK+1), all f32
-  return sizeof(float) *
-         (BQ * (HD + 1) + BK * (HD + 1) + BK * HD + BQ * (BK + 1));
-}
-
-// Thread layout: lane = 8 * (row group) + tx.  Thread (ty, tx), ty in 0..15,
-// owns query rows 4ty..4ty+3; for the scores it owns keys tx + 8j (j < 8),
-// for the output it owns columns tx + 8c (c < HD/8).  The 8 threads of one
-// row group sit in one warp, so row max and row sum are three shuffles and
-// the probabilities a warp writes to shared memory are read back only by
-// that warp.
-template <int HD>
-__global__ void __launch_bounds__(NTHREADS)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o, int S,
-                 int Tk, int H, int G, long long sqb, long long sqs,
-                 long long sqh, long long skb, long long sks, long long skh,
-                 long long svb, long long svs, long long svh, int causal,
-                 int window, float scale) {
-  // +1 pads: rows read by different lanes fall in different banks
-  constexpr int QS = HD + 1;
-  constexpr int KS = HD + 1;
-  constexpr int PS = BK + 1;
-  constexpr int CPT = HD / 8;
-  extern __shared__ float smem[];
-  float* sQ = smem;
-  float* sK = sQ + BQ * QS;
-  float* sV = sK + BK * KS;
-  float* sP = sV + BK * HD;
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int tx = lane & 7;
-  const int ty = (tid >> 5) * 4 + (lane >> 3);
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int kvh = h / G;
-
-  const float* qb = q + b * sqb + h * sqh;
-  const float* kb = k + b * skb + kvh * skh;
-  const float* vb = v + b * svb + kvh * svh;
-
-  for (int i = tid; i < BQ * HD; i += NTHREADS) {
-    const int r = i / HD, d = i % HD;
-    sQ[r * QS + d] = (q0 + r < S) ? qb[(long long)(q0 + r) * sqs + d] : 0.f;
-  }
-
-  float m[4], l[4], acc[4][CPT];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) acc[i][c] = 0.f;
-  }
-
-  const int nk = (Tk + BK - 1) / BK;
-  for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * BK;
-    // whole-tile skips, by the TPU kernel's rule (block-uniform branches)
-    if (causal && k0 > q0 + BQ - 1) break;
-    if (window && k0 + BK - 1 <= q0 - window) continue;
-
-    __syncthreads();  // every warp is done with the previous K/V tile
-    for (int i = tid; i < BK * HD; i += NTHREADS) {
-      const int r = i / HD, d = i % HD;
-      const bool in = k0 + r < Tk;
-      sK[r * KS + d] = in ? kb[(long long)(k0 + r) * sks + d] : 0.f;
-      sV[r * HD + d] = in ? vb[(long long)(k0 + r) * svs + d] : 0.f;
-    }
-    __syncthreads();
-
-    float s[4][8];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < HD; ++d) {
-      float qv[4], kv[8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = sQ[(4 * ty + i) * QS + d];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) kv[j] = sK[(tx + 8 * j) * KS + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + 4 * ty + i;
-      float mx = -CUDART_INF_F;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int kpos = k0 + tx + 8 * j;
-        float x = s[i][j] * scale;
-        if (kpos >= Tk)
-          x = -CUDART_INF_F;
-        else if ((causal && kpos > qpos) || (window && kpos <= qpos - window))
-          x = NEG_INF;
-        s[i][j] = x;
-        mx = fmaxf(mx, x);
-      }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = expf(m[i] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        sP[(4 * ty + i) * PS + tx + 8 * j] = p;
-        sum += p;
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 4);
-      l[i] = l[i] * alpha + sum;
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) acc[i][c] *= alpha;
-    }
-    __syncwarp();  // this warp's probability rows are written
-
-#pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
-      float pv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = sP[(4 * ty + i) * PS + c];
-#pragma unroll
-      for (int cc = 0; cc < CPT; ++cc) {
-        const float vv = sV[c * HD + tx + 8 * cc];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][cc] = fmaf(pv[i], vv, acc[i][cc]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qpos = q0 + 4 * ty + i;
-    if (qpos >= S) continue;
-    const float den = fmaxf(l[i], 1e-30f);
-    float* orow = o + ((long long)b * S + qpos) * H * HD + (long long)h * HD;
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) orow[tx + 8 * c] = acc[i][c] / den;
-  }
-}
-
-template <int HD>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int S, int Tk, int H, int KV, long long sqb,
-                   long long sqs, long long sqh, long long skb, long long sks,
-                   long long skh, long long svb, long long svs, long long svh,
-                   int causal, int window, float scale, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<HD>();
-  auto kern = flash_fwd_kernel<HD>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((S + BQ - 1) / BQ, H, B);
-  kern<<<grid, NTHREADS, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), S, Tk, H,
-      H / KV, sqb, sqs, sqh, skb, sks, skh, svb, svs, svh, causal, window,
-      scale);
-  return cudaGetLastError();
-}
-
 
 // ---------------------------------------------------------------------------
 // bf16 kernel: tensor cores
@@ -611,6 +440,357 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// float32 kernel: FMAs on the CUDA cores from register tiles
+// ---------------------------------------------------------------------------
+
+// Tiles of the float32 kernel, by head dim.  A warp owns WR query rows in
+// row groups of 8; the CG lanes of a row group split them two ways.  In
+// Q K^T each lane sums an 8 x 8 block of scores (8 rows by 8 keys: keys
+// j KG + kg) over 1 / DG of the depth, from 16-byte loads of 8 q and 8 k
+// values: 256 FMAs for 16 float4, 4 FMAs a float read; the DG partial
+// blocks are then summed by a reduce-scatter over the lanes, which leaves
+// each lane R = 8 / DG rows of 8 keys for the softmax.  In P V each lane
+// owns its row group's 8 rows by TC of O's columns (8 x 8 FMAs for 4 + 4
+// floats a key, 4 FMAs a float read; 8 x 12 for 5 float4 at hd 192, 4.8),
+// reading P^T and V as float4.  P goes through shared memory, written and
+// read within one warp.  K rows are padded by DG % 8 16-byte units so that
+// the 8 lanes of a 16-byte load phase fall in 8 different bank groups.
+// What the card reports (chip_smoke.py phase 2: cudaFuncGetAttributes and
+// the occupancy calculator; the registers and spills are ptxas's), built
+// by CUDA 12.8 on an H100 80GB HBM3:
+//
+//   hd   warps  BQ   BK  TC  DG  shared memory  registers  spills  blocks/SM
+//   16   1      128  16  8   1    21,504 B      254        0       8
+//   32   1       64  16  8   2    21,760 B      233        0       8
+//   64   4      128  32  8   2    84,480 B      233        0       2
+//   128  4       64  32  8   4   110,848 B      247        0       2
+//   192  8      128  32  12  4   217,600 B      255        0       1
+//   256  8       64  32  8   8   205,056 B      254        0       1
+//
+// So 8 warps are resident on an SM at every head dim (4 at hd 192 and
+// 256 before).  O's accumulators take 8 TC registers a lane (96 at hd
+// 192), the scores 64, one depth unit's K values 32.  With the depth loop
+// unrolled whole the compiler hoists the next units' loads, and at hd 128
+// and 192 spills (16 and 40 bytes); so the loads go one unit at a time
+// (DUB), but at hd 256, where whole is 1.5-2.8 % faster (flash_sweep.py
+// --dtype float32, call flash32c; there also P V's key loop unrolled by 2
+// or 8, hd 64 in 2-warp blocks of 16 keys and hd 192 in 4-warp blocks of
+// 16 keys, none faster by more than 2.4 % at any cell).
+template <int HD>
+struct F32Tiles {
+  static constexpr int TC = HD == 192 ? 12 : 8;  // O's columns a lane
+  static constexpr int CG = HD / TC;             // lanes of a row group
+  static constexpr int WR = 8 * (32 / CG);       // rows a warp
+  static constexpr int WARPS = HD >= 192 ? 8 : HD >= 64 ? 4 : 1;
+  static constexpr int BQ = WR * WARPS;
+  static constexpr int BK = HD <= 32 ? 16 : 32;
+  static constexpr int KG = BK / 8;              // key groups of 8 keys
+  static constexpr int DG = CG / KG;             // depth split of Q K^T
+  static constexpr int R = 8 / DG;               // rows a lane in softmax
+  static constexpr int NT = 32 * WARPS;
+  static constexpr int KS = HD + 4 * (DG % 8);   // K's row stride
+  // depth units of Q K^T whose loads the compiler may issue together
+  static constexpr int DUB = HD == 256 ? HD / 4 / DG : 1;
+  // floats: Q, two stages of K and of V, P^T, a value a row (alpha, l)
+  static constexpr int SMEM = 4 * (BQ * HD + 2 * BK * (KS + HD) + BQ * BK + BQ);
+  static_assert(CG * TC == HD && 32 % CG == 0 && KG * DG == CG &&
+                    TC % 4 == 0 && (HD / 4) % DG == 0 &&
+                    (HD / 4 / DG) % DUB == 0,
+                "float32 tiles");
+};
+
+// Stage rows r0 .. r0 + R - 1 of one head (row stride rs elements) into a
+// tile of row stride LD floats; rows at or past n are zero-filled.  With
+// vec by 16-byte cp.async, else element by element.
+template <int HD, int R, int LD, int NT>
+__device__ __forceinline__ void stage_rows_f32(float* s, const float* g,
+                                               long long rs, int r0, int n,
+                                               bool vec) {
+  constexpr int UPR = HD / 4;  // 16-byte units a row
+  constexpr int UNITS = R * UPR;
+#pragma unroll
+  for (int i0 = 0; i0 < UNITS; i0 += NT) {
+    const int i = i0 + threadIdx.x;
+    if (UNITS % NT != 0 && i >= UNITS) break;
+    const int r = i / UPR, c = i % UPR;
+    const bool in = r0 + r < n;
+    const float* src = g + (in ? r0 + r : 0) * rs + c * 4;
+    float* dst = s + r * LD + c * 4;
+    if (vec) {
+      cp_async_16(smem_addr(dst), src, in ? 16 : 0);
+    } else {
+      *reinterpret_cast<float4*>(dst) =
+          in ? make_float4(src[0], src[1], src[2], src[3])
+             : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(F32Tiles<HD>::NT)
+flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o,
+                     int S, int Tk, int H, int G, long long sqb,
+                     long long sqs, long long sqh, long long skb,
+                     long long sks, long long skh, long long svb,
+                     long long svs, long long svh, int causal, int window,
+                     float scale_log2, int vec) {
+  using C = F32Tiles<HD>;
+  constexpr int BQ = C::BQ, BK = C::BK, NT = C::NT, WR = C::WR;
+  constexpr int CG = C::CG, KG = C::KG, DG = C::DG, R = C::R, KS = C::KS;
+  constexpr int DU = HD / 4 / DG;  // 16-byte depth units a lane sums
+  constexpr int TU = C::TC / 4;    // 16-byte units of O a lane owns
+  extern __shared__ __align__(16) float smem_f[];
+  float* sQ = smem_f;                // BQ x HD
+  float* sK = sQ + BQ * HD;          // two stages of BK x KS
+  float* sV = sK + 2 * BK * KS;      // two stages of BK x HD
+  float* sP = sV + 2 * BK * HD;      // each warp's P^T, BK x WR
+  float* sA = sP + BQ * BK;          // each warp's alpha, then l
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int c = lane % CG, kg = c / DG, dg = c % DG;
+  const int prow = (lane / CG) * 8;  // the row group's first row in the warp
+  const int srow = prow + dg * R;    // this lane's first softmax row
+  // under a causal mask the last query tiles see the most keys: first
+  const int qt = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int q0 = qt * BQ;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const float* qb = q + b * sqb + h * sqh;
+  const float* kb = k + b * skb + (h / G) * skh;
+  const float* vb = v + b * svb + (h / G) * svh;
+
+  // the KV tiles that hold a visible key for some row of this block, and
+  // of this warp (rows w0 .. w1; none past S)
+  const int nk = (Tk + BK - 1) / BK;
+  const int kt_lo = window ? max(0, q0 - window + 1) / BK : 0;
+  const int kt_hi = causal ? min(nk, (min(q0 + BQ, S) - 1) / BK + 1) : nk;
+  const int w0 = q0 + warp * WR, w1 = min(w0 + WR, S) - 1;
+  const int wk_lo = window ? max(0, w0 - window + 1) / BK : 0;
+  const int wk_hi = w1 < w0 ? 0 : causal ? min(nk, w1 / BK + 1) : nk;
+
+  stage_rows_f32<HD, BQ, HD, NT>(sQ, qb, sqs, q0, S, vec);
+  stage_rows_f32<HD, BK, KS, NT>(sK, kb, sks, kt_lo * BK, Tk, vec);
+  stage_rows_f32<HD, BK, HD, NT>(sV, vb, svs, kt_lo * BK, Tk, vec);
+  cp_async_commit();
+
+  float* pw = sP + warp * WR * BK;  // P^T of this warp: [key][row]
+  float* aw = sA + warp * WR;
+  const float* qw = sQ + (warp * WR + prow) * HD;
+  float acc[8][C::TC];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int e = 0; e < C::TC; ++e) acc[i][e] = 0.f;
+  float m[R], l[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    m[r] = NEG_INF;
+    l[r] = 0.f;
+  }
+
+  for (int kt = kt_lo; kt < kt_hi; ++kt) {
+    const int stage = (kt - kt_lo) & 1;
+    cp_async_wait_all();
+    __syncthreads();  // tile kt is in; every warp is done with tile kt - 1
+    if (kt + 1 < kt_hi) {
+      stage_rows_f32<HD, BK, KS, NT>(sK + (stage ^ 1) * BK * KS, kb, sks,
+                                     (kt + 1) * BK, Tk, vec);
+      stage_rows_f32<HD, BK, HD, NT>(sV + (stage ^ 1) * BK * HD, vb, svs,
+                                     (kt + 1) * BK, Tk, vec);
+      cp_async_commit();
+    }
+    if (kt < wk_lo || kt >= wk_hi) continue;  // no visible key: the warp
+    const float* cK = sK + stage * BK * KS;
+    const float* cV = sV + stage * BK * HD;
+
+    // this lane's part of Q K^T: rows prow + i, keys j KG + kg, depth
+    // units du DG + dg
+    float s[8][8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
+#pragma unroll 1
+    for (int du0 = 0; du0 < DU; du0 += C::DUB) {
+#pragma unroll
+      for (int du = du0; du < du0 + C::DUB; ++du) {
+        const int d = (du * DG + dg) * 4;
+        float4 kf[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          kf[j] =
+              *reinterpret_cast<const float4*>(cK + (j * KG + kg) * KS + d);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float4 qf =
+              *reinterpret_cast<const float4*>(qw + i * HD + d);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            s[i][j] = fmaf(qf.x, kf[j].x, s[i][j]);
+            s[i][j] = fmaf(qf.y, kf[j].y, s[i][j]);
+            s[i][j] = fmaf(qf.z, kf[j].z, s[i][j]);
+            s[i][j] = fmaf(qf.w, kf[j].w, s[i][j]);
+          }
+        }
+      }
+    }
+    // the DG partial sums by a reduce-scatter over the depth lanes: each
+    // step keeps half of the rows and sends the other half; rows srow ..
+    // srow + R - 1 end in s[0 .. R - 1]
+#pragma unroll
+    for (int msk = DG / 2, cnt = 8; msk >= 1; msk >>= 1, cnt >>= 1) {
+      const bool up = dg & msk;
+#pragma unroll
+      for (int i = 0; i < cnt / 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float send = up ? s[i][j] : s[cnt / 2 + i][j];
+          const float keep = up ? s[cnt / 2 + i][j] : s[i][j];
+          s[i][j] = keep + __shfl_xor_sync(0xffffffffu, send, msk);
+        }
+    }
+
+    // scale, then mask: only the diagonal tile, the window's edge tile and
+    // the ragged tail hold masked keys (warp-uniform branch)
+    const int k0 = kt * BK;
+    const bool edge = k0 + BK > Tk || (causal && k0 + BK - 1 > w0) ||
+                      (window && k0 <= w0 + WR - 1 - window);
+    float mx[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      mx[r] = m[r];
+      const int qpos = w0 + srow + r;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        float x = s[r][j] * scale_log2;
+        if (edge) {
+          const int kpos = k0 + j * KG + kg;
+          if (kpos >= Tk)
+            x = -CUDART_INF_F;
+          else if ((causal && kpos > qpos) ||
+                   (window && kpos <= qpos - window))
+            x = NEG_INF;
+        }
+        s[r][j] = x;
+        mx[r] = fmaxf(mx[r], x);
+      }
+    }
+    // online softmax over the key lanes of each row; each lane keeps its
+    // own part of l until the end
+    float alpha[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+#pragma unroll
+      for (int msk = DG; msk < CG; msk <<= 1)
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], msk));
+      alpha[r] = exp2f(m[r] - mx[r]);
+      m[r] = mx[r];
+      l[r] *= alpha[r];
+    }
+    __syncwarp();  // the warp's reads of the last tile's P and alpha are done
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float p = exp2f(s[r][j] - m[r]);
+        l[r] += p;
+        pw[(j * KG + kg) * WR + srow + r] = p;
+      }
+      if (kg == 0) aw[srow + r] = alpha[r];
+    }
+    __syncwarp();
+
+    // O = alpha O + P V: the row group's 8 rows, columns (tu CG + c) 4 ..
+    {
+      const float4 a0 = *reinterpret_cast<const float4*>(aw + prow);
+      const float4 a1 = *reinterpret_cast<const float4*>(aw + prow + 4);
+      const float al[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int e = 0; e < C::TC; ++e) acc[i][e] *= al[i];
+    }
+#pragma unroll 4
+    for (int j = 0; j < BK; ++j) {
+      const float4 p0 = *reinterpret_cast<const float4*>(pw + j * WR + prow);
+      const float4 p1 =
+          *reinterpret_cast<const float4*>(pw + j * WR + prow + 4);
+      const float pv[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
+#pragma unroll
+      for (int tu = 0; tu < TU; ++tu) {
+        const float4 vv =
+            *reinterpret_cast<const float4*>(cV + j * HD + (tu * CG + c) * 4);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          acc[i][4 * tu] = fmaf(pv[i], vv.x, acc[i][4 * tu]);
+          acc[i][4 * tu + 1] = fmaf(pv[i], vv.y, acc[i][4 * tu + 1]);
+          acc[i][4 * tu + 2] = fmaf(pv[i], vv.z, acc[i][4 * tu + 2]);
+          acc[i][4 * tu + 3] = fmaf(pv[i], vv.w, acc[i][4 * tu + 3]);
+        }
+      }
+    }
+  }
+  cp_async_wait_all();  // nothing in flight at exit, even with no KV tile
+
+  // l over the key lanes, then each row's l to the lanes that own its O
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int msk = DG; msk < CG; msk <<= 1)
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], msk);
+  __syncwarp();
+  if (kg == 0)
+#pragma unroll
+    for (int r = 0; r < R; ++r) aw[srow + r] = l[r];
+  __syncwarp();
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int qpos = w0 + prow + i;
+    if (qpos >= S) continue;
+    const float den = fmaxf(aw[prow + i], 1e-30f);
+    float* orow = o + ((long long)b * S + qpos) * H * HD + (long long)h * HD;
+#pragma unroll
+    for (int tu = 0; tu < TU; ++tu)
+      *reinterpret_cast<float4*>(orow + (tu * CG + c) * 4) = make_float4(
+          acc[i][4 * tu] / den, acc[i][4 * tu + 1] / den,
+          acc[i][4 * tu + 2] / den, acc[i][4 * tu + 3] / den);
+  }
+}
+
+template <int HD>
+cudaError_t prepare_f32() {
+  auto kern = flash_fwd_f32_kernel<HD>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, F32Tiles<HD>::SMEM);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(kern,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+}
+
+template <int HD>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
+                       int B, int S, int Tk, int H, int KV, long long sqb,
+                       long long sqs, long long sqh, long long skb,
+                       long long sks, long long skh, long long svb,
+                       long long svs, long long svh, int causal, int window,
+                       float scale, cudaStream_t stream) {
+  using C = F32Tiles<HD>;
+  cudaError_t err = prepare_f32<HD>();
+  if (err != cudaSuccess) return err;
+  const bool vec = aligned16(q) && aligned16(k) && aligned16(v) &&
+                   (sqb | sqs | sqh | skb | sks | skh | svb | svs | svh) % 4 ==
+                       0;
+  const dim3 grid((S + C::BQ - 1) / C::BQ, H, B);
+  flash_fwd_f32_kernel<HD><<<grid, C::NT, C::SMEM, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), S, Tk, H, H / KV,
+      sqb, sqs, sqh, skb, sks, skh, svb, svs, svh, causal, window,
+      scale * LOG2E, vec);
+  return cudaGetLastError();
+}
+
 // f(std::integral_constant<int, hd>) for a supported head dim
 template <typename F>
 cudaError_t with_hd(int hd, F&& f) {
@@ -650,7 +830,7 @@ cudaError_t attrs_of(K kern, int threads, int smem, int* out) {
 // synchronising and returns cudaGetLastError() (0 on success).  The caller
 // has checked shapes, dtypes and strides (stride 1 on hd); `o` is a
 // contiguous (B, S, H, hd) tensor of q's dtype.  bf16 runs the
-// tensor-core kernel, float32 the FMA kernel.
+// tensor-core kernel, float32 the register-tiled FMA kernel.
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, int is_bf16, int B,
     int S, int Tk, int H, int KV, int hd, long long sqb, long long sqs,
@@ -664,8 +844,8 @@ extern "C" int flash_attention_fwd(
       return launch_bf16<HD>(q, k, v, o, B, S, Tk, H, KV, sqb, sqs, sqh, skb,
                              sks, skh, svb, svs, svh, causal, window, scale,
                              st);
-    return launch<HD>(q, k, v, o, B, S, Tk, H, KV, sqb, sqs, sqh, skb, sks,
-                      skh, svb, svs, svh, causal, window, scale, st);
+    return launch_f32<HD>(q, k, v, o, B, S, Tk, H, KV, sqb, sqs, sqh, skb,
+                          sks, skh, svb, svs, svh, causal, window, scale, st);
   });
 }
 
@@ -682,11 +862,9 @@ extern "C" int flash_attention_attrs(int is_bf16, int hd, int* out) {
       return attrs_of(flash_fwd_bf16_kernel<HD>, Bf16Tiles<HD>::NT,
                       Bf16Tiles<HD>::SMEM, out);
     }
-    auto kern = flash_fwd_kernel<HD>;
-    cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem_bytes<HD>());
+    cudaError_t err = prepare_f32<HD>();
     if (err != cudaSuccess) return err;
-    return attrs_of(kern, NTHREADS, (int)smem_bytes<HD>(), out);
+    return attrs_of(flash_fwd_f32_kernel<HD>, F32Tiles<HD>::NT,
+                    F32Tiles<HD>::SMEM, out);
   });
 }

@@ -10,22 +10,25 @@
 //
 // which is the function of the oracle src/repro/kernels/ref.py::wkv6_ref
 // (and of this package's ref.wkv6_ref), at every sequence length, with any
-// initial state and any decay w in [0, 1].  The entry point picks the
-// kernel by dtype; either one runs or the launch fails.
+// initial state and any decay w in [0, 1].  One kernel, wkv6_chunk_kernel,
+// instantiated for bf16 and for float32 r, k, v and output; the entry point
+// picks the instantiation by dtype, and either one runs or the launch
+// fails.
 //
 // What bounds it on the H100.  At the serving shape of rwkv6-3b (B 8, S 512,
-// H 40, N 64; r, k, v and the output in bf16, w in f32, the state in and out
-// in f32) the function must move 136,325,120 bytes (0.040694 ms at 3.35
-// TB/s) and do 5 N^2 operations per token and head (k v^T 1, the state
-// update 2, the output product 2): 3.36 GFLOP, 0.0034 ms at the 989 TFLOP/s
-// of the bf16 tensor cores, 0.0501 ms at the 67 TFLOP/s of the CUDA cores.
-// So the bf16 kernel, whose products run on the tensor cores, is bound by
-// its bytes; the float32 kernel, on the CUDA cores, by its operations.
+// H 40, N 64; w in f32, the state in and out in f32) the function does 5
+// N^2 operations per token and head (k v^T 1, the state update 2, the
+// output product 2): 3.36 GFLOP, 0.0034 ms at the 989 TFLOP/s of the bf16
+// tensor cores (0.0501 ms even at the 67 TFLOP/s of the CUDA cores).  With
+// r, k, v and the output in bf16 it must move 136,325,120 bytes (0.040694
+// ms at 3.35 TB/s), in float32 220,211,200 bytes (0.065735 ms).  Both
+// instantiations run their products on the tensor cores, so bytes bound
+// both.
 //
-// bf16: the chunked form on the tensor cores (wkv6_chunk_bf16_kernel).
-// Within a chunk of C = 16 tokens, with d_in[t] = prod_{j<t} w_j,
-// d_tail[s] = prod_{j>s} w_j and d_total = prod_j w_j (per n), the output
-// and the state update are four products (the TPU kernel's, wkv6.py:8-12):
+// The chunked form.  Within a chunk of C = 16 tokens, with d_in[t] =
+// prod_{j<t} w_j, d_tail[s] = prod_{j>s} w_j and d_total = prod_j w_j (per
+// n), the output and the state update are four products (the TPU
+// kernel's, wkv6.py:8-12):
 //
 //     out  = (r . d_in) S  +  A v,   A[t, s] = sum_n r_t k_s prod_{s<j<t} w_j
 //            for s < t, A[t, t] = sum_n r_t u k_t (the bonus), 0 above
@@ -43,12 +46,14 @@
 // chunk is the same for both.
 //
 // The products run as mma.sync.m16n8k16 (bf16 in, f32 accumulators), with
-// fragments from ldmatrix.  r, k and v are bf16 already and so exact; the
-// decay-scaled operands, A and the state are f32, and each is split into
-// K = 3 bf16 parts, each the rounding of what the parts before it leave.
-// The product of two split operands takes the six pairs of parts whose
-// orders sum to less than three (x y to about 2^-24 of |x| |y|, as an f32
-// product), of one with r, k or v three products.  Two parts keep 2^-17
+// fragments from ldmatrix.  The decay-scaled operands (r . d_in, k / d_in,
+// k . d_tail), A and the state are f32, and each is split into K = 3 bf16
+// parts, each the rounding of what the parts before it leave; r and k
+// enter the products only through them, in f32 whatever their dtype.  v
+// is exact in bf16 and, in float32, split into three parts too.  The
+// product of two split operands takes the six pairs of parts whose orders
+// sum to less than three (x y to about 2^-24 of |x| |y|, as an f32
+// product), of a split one with bf16 v three products.  Two parts keep 2^-17
 // of each term: within the bounds (output 2e-2, state 1e-4), but in a
 // served rwkv6-3b prefill, whose states reach |S| ~ 600, the output's
 // state term (r . d_in) S then lost enough that ten times as many outputs
@@ -65,35 +70,30 @@
 // columns 16w .. 16w + 15.  Its part of S^T (16 x N) lives in mma
 // accumulators in registers across chunks, split into the B fragments of
 // the output product as it stands.  The block stages r, k, w and v by
-// 16-byte cp.async into a ring of three stages, the fewest that let a copy
-// run a chunk ahead: chunk ch's v is read by its products, chunk ch + 1's
-// inputs by the forming of its operands, and chunk ch + 2's copies are in
-// flight.  Per chunk ch, behind a barrier: chunk ch + 2's copies are
-// issued, and the warps form A of chunk ch once for the block (warp w one
-// s tile over half the k-steps, the two halves summed in shared memory);
-// behind a second barrier each thread forms chunk ch + 1's operands (the
-// running products of w over one pair of columns and four rows: no exp or
+// 16-byte cp.async into a ring (ChunkTiles::STAGES: three in bf16, two in
+// float32, whose inputs take twice the bytes: a third stage's shared
+// memory would leave two blocks an SM).  Per chunk ch, behind a barrier:
+// the warps form A of chunk ch once for the block (warp w one s tile over
+// half the k-steps, the two halves summed in shared memory), and each warp
+// takes chunk ch's v at its columns into registers (in float32, split
+// there into its parts); with three stages chunk ch + 2's copies are
+// issued here, into chunk ch - 1's stage.  Behind a second barrier (with
+// two stages chunk ch + 2's copies are issued now, into chunk ch's stage,
+// which no warp reads any more) each thread forms chunk ch + 1's operands
+// (the running products of w over one pair of columns and four rows: no exp or
 // log, so the decays round as the oracle's state does; 1 / d_in by
 // MUFU.RCP) into XOR-swizzled tiles that ldmatrix reads without bank
 // conflicts, while each warp runs chunk ch's products and writes its
 // output rows from the accumulators.  Inputs whose base pointers are not
 // 16-byte aligned are staged element by element into the same layout.
 //
-// What the card shows (wkv6_sweep.py; PERF.md section 6): a block alone
-// on its SM (B 1) takes 0.58 of the time of the 320 blocks, so each
+// What the card shows (wkv6_sweep.py; PERF.md section 6): in bf16 a block
+// alone on its SM (B 1) takes 0.58 of the time of the 320 blocks, so each
 // block's chain of dependent instructions per chunk sets the time, not the
 // bytes.  Measured and dropped: each warp forming the A it needs (7 %
 // slower), a split of each head's columns over two blocks (ChunkTiles::NV
 // = N / 2; 640 blocks, each chunk's operands formed twice: 1.7x slower), a
 // fourth stage (its shared memory leaves two blocks an SM: 1.5x slower).
-
-// float32: the first kernel (wkv6_kernel), written for float
-// alone now that bf16 has its own kernel.  One block per (batch, head)
-// walks the tokens one by one with the state in registers: thread (m, p),
-// p < P, holds rows n = j * P + p (j < N / P) of column m, and the P
-// partial sums of o_t[m] are folded with two warp shuffles.  The block
-// stages C tokens per pair of barriers, so each input element is read once.
-// No cumulative decay is formed, so no floor is needed for range.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -103,103 +103,56 @@
 
 namespace {
 
-constexpr int C = 16;  // tokens staged per chunk (both kernels)
+constexpr int C = 16;  // tokens a chunk
 
 // ---------------------------------------------------------------------------
-// float32 kernel: CUDA-core FMAs, token by token
-// ---------------------------------------------------------------------------
-
-constexpr int P = 4;  // threads per state column
-
-template <int N>
-__global__ void __launch_bounds__(N * P)
-wkv6_kernel(const float* __restrict__ r, const float* __restrict__ k,
-            const float* __restrict__ v, const float* __restrict__ w,
-            const float* __restrict__ u, const float* __restrict__ s0,
-            float* __restrict__ out, float* __restrict__ s_out, int S,
-            int H) {
-  constexpr int R = N / P;  // state rows per thread
-  constexpr int NT = N * P;
-  __shared__ float sr[C][N], sk[C][N], sv[C][N], sw[C][N], su[N];
-
-  const int tid = threadIdx.x;
-  const int m = tid / P;
-  const int p = tid % P;
-  const int bh = blockIdx.x;  // b * H + h
-  const int b = bh / H;
-  const int h = bh % H;
-
-  const long long sbase = (long long)bh * N * N;
-  float st[R];
-#pragma unroll
-  for (int j = 0; j < R; ++j)
-    st[j] = s0 ? s0[sbase + (long long)(j * P + p) * N + m] : 0.f;
-  if (tid < N) su[tid] = u[h * N + tid];
-
-  // element (b, t, h, n) of the (B, S, H, N) inputs and output
-  const long long tstride = (long long)H * N;
-  const long long base = (long long)b * S * tstride + (long long)h * N;
-
-  for (int t0 = 0; t0 < S; t0 += C) {
-    const int nc = min(C, S - t0);
-    __syncthreads();  // the previous chunk is consumed (and su is written)
-    for (int i = tid; i < nc * N; i += NT) {
-      const int c = i / N, n = i % N;
-      const long long off = base + (long long)(t0 + c) * tstride + n;
-      sr[c][n] = r[off];
-      sk[c][n] = k[off];
-      sv[c][n] = v[off];
-      sw[c][n] = w[off];
-    }
-    __syncthreads();
-    for (int c = 0; c < nc; ++c) {
-      const float vm = sv[c][m];
-      float o0 = 0.f, o1 = 0.f;  // two chains of FMAs, not one
-#pragma unroll
-      for (int j = 0; j < R; ++j) {
-        const int n = j * P + p;
-        const float kv = sk[c][n] * vm;
-        const float a = fmaf(su[n], kv, st[j]);
-        if (j & 1)
-          o1 = fmaf(sr[c][n], a, o1);
-        else
-          o0 = fmaf(sr[c][n], a, o0);
-        st[j] = fmaf(sw[c][n], st[j], kv);
-      }
-      float o = o0 + o1;
-#pragma unroll
-      for (int d = P / 2; d > 0; d >>= 1)
-        o += __shfl_xor_sync(0xffffffffu, o, d);
-      if (p == 0) out[base + (long long)(t0 + c) * tstride + m] = o;
-    }
-  }
-
-#pragma unroll
-  for (int j = 0; j < R; ++j)
-    s_out[sbase + (long long)(j * P + p) * N + m] = st[j];
-}
-
-// ---------------------------------------------------------------------------
-// bf16 kernel: the chunked form on the tensor cores
+// the chunked form on the tensor cores (bf16 and float32 r, k, v)
 // ---------------------------------------------------------------------------
 
 constexpr float THETA = 0x1p-96f;  // least decay of a chunk it factorises
 
-template <int N>
+// In: the type of r, k, v and the output (bf16 or float).  What the card
+// reports (chip_smoke.py phase 2; CUDA 12.8, H100 80GB HBM3):
+//
+//   In     N   shared memory  registers  spills  blocks/SM  HMMA
+//   bf16   16   19,264 B      117        0       11          36
+//   bf16   32   36,352 B      146        0        6          66
+//   bf16   64   70,528 B      161        0        3         126
+//   float  16   20,288 B      128        0       10          48
+//   float  32   37,888 B      168        0        6          84
+//   float  64   73,088 B      168        0        3         156
+//
+// A third float32 stage (89,728 B at N 64) leaves two blocks an SM and
+// took 0.222 ms at the serving shape against two stages' 0.149; two
+// parts took 0.103 ms but missed 1e-4 on the state and the output where
+// w lies near 1 (wkv6_sweep.py --dtype float32).
+template <typename In, int N>
 struct ChunkTiles {
   // columns of the state a block owns (N / 2: wkv6_sweep.py's two_blocks)
   static constexpr int NV = N;
   static constexpr int SPLIT = N / NV;     // blocks a (batch, head)
   static constexpr int WARPS = NV / 16;    // each owns 16 columns of S
   static constexpr int NT = 32 * WARPS;
-  static constexpr int STAGES = 3;         // chunks of input in the ring
+  static constexpr bool F32 = sizeof(In) == 4;
+  // chunks of input in the ring (float32: 3 stages' shared memory would
+  // leave 2 blocks an SM)
+  static constexpr int STAGES = F32 ? 2 : 3;
+  // blocks an SM the shared memory leaves (at N 64), so registers for them
+  static constexpr int MIN_BLOCKS = 3;
   static constexpr int PARTS = 3;          // bf16 parts of an f32 operand
+  static constexpr int VPARTS = F32 ? PARTS : 1;  // parts of v
   static constexpr int TILE = C * N;       // elements of a C x N tile
-  // bytes: a stage holds r, k, v (C x N bf16) and w (C x N f32); an
-  // operand set PARTS parts each of r . d_in, k / d_in[s + 1] and
+  static constexpr int EPP = 16 / sizeof(In);     // elements a 16-byte piece
+  // v's row stride: float32 v is read element by element, its rows padded
+  // so that a warp's reads fall in 32 banks; bf16 v is swizzled
+  static constexpr int VS = F32 ? N + 4 : N;
+  // bytes: a stage holds r, k (C x N In), w (C x N f32) and v (C x VS
+  // In); an operand set PARTS parts each of r . d_in, k / d_in[s + 1] and
   // k . d_tail (C x N bf16), d_total (N f32) and the bonus (C f32); then
   // A in two parts (2 x C x C f32), and u (N f32)
-  static constexpr int STAGE = TILE * (2 * 3 + 4);
+  static constexpr int KOFF = TILE * sizeof(In), WOFF = 2 * KOFF,
+                       VOFF = WOFF + 4 * TILE;
+  static constexpr int STAGE = VOFF + C * VS * sizeof(In);
   static constexpr int OPS = 3 * PARTS * TILE * 2 + N * 4 + C * 4;
   static constexpr int SMEM =
       STAGES * STAGE + 2 * OPS + 2 * C * C * 4 + N * 4;
@@ -274,6 +227,23 @@ __device__ __forceinline__ void split(float x0, float x1, uint32_t* parts) {
   }
 }
 
+__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
 // the sum of K accumulators of one product, smallest parts first
 template <int K>
 __device__ __forceinline__ float sum_parts(const float (*acc)[2][4], int i,
@@ -316,24 +286,24 @@ __device__ __forceinline__ void copy16(void* dst, const void* src, bool in,
   }
 }
 
-template <int N>
-__global__ void __launch_bounds__(ChunkTiles<N>::NT)
-wkv6_chunk_bf16_kernel(const __nv_bfloat16* __restrict__ r,
-                       const __nv_bfloat16* __restrict__ k,
-                       const __nv_bfloat16* __restrict__ v,
-                       const float* __restrict__ w,
-                       const float* __restrict__ u,
-                       const float* __restrict__ s0,
-                       __nv_bfloat16* __restrict__ out,
-                       float* __restrict__ s_out, int S, int H, int vec) {
-  using T = ChunkTiles<N>;
+template <typename In, int N>
+__global__ void __launch_bounds__(ChunkTiles<In, N>::NT,
+                                  ChunkTiles<In, N>::MIN_BLOCKS)
+wkv6_chunk_kernel(const In* __restrict__ r, const In* __restrict__ k,
+                  const In* __restrict__ v, const float* __restrict__ w,
+                  const float* __restrict__ u, const float* __restrict__ s0,
+                  In* __restrict__ out, float* __restrict__ s_out, int S,
+                  int H, int vec) {
+  using T = ChunkTiles<In, N>;
   constexpr int NT = T::NT;
   constexpr int K = T::PARTS;
+  constexpr int VP = T::VPARTS;
+  constexpr int VS = T::VS;
   constexpr int TILE = T::TILE;
   constexpr int NN8 = N / 8;   // 8-wide n tiles of this warp's S^T
   constexpr int KS = N / 16;   // k-steps over n
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  // input stages: r, k, w plain row-major, v swizzled
+  // input stages: r, k, w plain row-major, v swizzled (bf16) or padded
   unsigned char* stages = smem_raw;
   // two operand sets: K parts each of r . d_in, k / d_in[s + 1] and
   // k . d_tail, swizzled C x N tiles; d_total; the bonus sum_n r_t u k_t
@@ -357,17 +327,17 @@ wkv6_chunk_bf16_kernel(const __nv_bfloat16* __restrict__ r,
   for (int i = tid; i < N; i += NT) sU[i] = u[h * N + i];
   for (int i = tid; i < C * C; i += NT) sA[C * C + i] = 0.f;
 
-  struct In {  // chunk ch's inputs, in stage ch % STAGES
-    __nv_bfloat16 *r, *k, *v;
+  struct Inputs {  // chunk ch's inputs, in stage ch % STAGES
+    In *r, *k, *v;
     float* w;
   };
   const auto in_of = [&](int ch) {
     unsigned char* p = stages + (ch % T::STAGES) * T::STAGE;
-    In x;
-    x.r = reinterpret_cast<__nv_bfloat16*>(p);
-    x.k = x.r + TILE;
-    x.w = reinterpret_cast<float*>(x.k + TILE);
-    x.v = reinterpret_cast<__nv_bfloat16*>(x.w + TILE);
+    Inputs x;
+    x.r = reinterpret_cast<In*>(p);
+    x.k = reinterpret_cast<In*>(p + T::KOFF);
+    x.w = reinterpret_cast<float*>(p + T::WOFF);
+    x.v = reinterpret_cast<In*>(p + T::VOFF);
     return x;
   };
   struct Ops {  // chunk ch's operands, in set ch & 1
@@ -387,17 +357,19 @@ wkv6_chunk_bf16_kernel(const __nv_bfloat16* __restrict__ r,
   // The 16-byte pieces this thread copies for every chunk: RKV each of r,
   // k and v, WP of w.  Their offsets within a chunk stay the same from
   // chunk to chunk.
-  constexpr int RKV = C * N / 8 / NT, WP = C * N / 4 / NT;
-  static_assert(RKV * NT == C * N / 8 && WP * NT == C * N / 4, "pieces");
+  constexpr int EPP = T::EPP;
+  constexpr int RKV = C * N / EPP / NT, WP = C * N / 4 / NT;
+  static_assert(RKV * NT == C * N / EPP && WP * NT == C * N / 4, "pieces");
   int tp[RKV], sp[RKV], sv[RKV], tw[WP], sw[WP];
   long long gp[RKV], gw[WP];
 #pragma unroll
   for (int j = 0; j < RKV; ++j) {
-    const int i = tid + j * NT, c = i % (N / 8);
-    tp[j] = i / (N / 8);
-    gp[j] = tp[j] * ts + c * 8;       // elements in the chunk's rows
-    sp[j] = tp[j] * N * 2 + c * 16;   // bytes in r's and k's tiles
-    sv[j] = swz<N>(tp[j], c) * 2;     // bytes in v's (swizzled) tile
+    const int i = tid + j * NT, c = i % (N / EPP);
+    tp[j] = i / (N / EPP);
+    gp[j] = tp[j] * ts + c * EPP;               // elements in the rows
+    sp[j] = tp[j] * N * sizeof(In) + c * 16;    // bytes in r's and k's tiles
+    sv[j] = T::F32 ? (tp[j] * VS + c * 4) * 4   // bytes in v's tile
+                   : swz<N>(tp[j], c) * 2;
   }
 #pragma unroll
   for (int j = 0; j < WP; ++j) {
@@ -420,12 +392,12 @@ wkv6_chunk_bf16_kernel(const __nv_bfloat16* __restrict__ r,
         const bool in = tp[j] < nc;
         const long long gi = in ? g0 + gp[j] : base;
         copy16(p + sp[j], r + gi, in, vec);
-        copy16(p + 2 * TILE + sp[j], k + gi, in, vec);
-        copy16(p + 8 * TILE + sv[j], v + gi, in, vec);
+        copy16(p + T::KOFF + sp[j], k + gi, in, vec);
+        copy16(p + T::VOFF + sv[j], v + gi, in, vec);
       }
 #pragma unroll
       for (int j = 0; j < WP; ++j)
-        copy16(p + 4 * TILE + sw[j],
+        copy16(p + T::WOFF + sw[j],
                w + (tw[j] < nc ? g0 + gw[j] : base), tw[j] < nc, vec);
     }
     cp_async_commit();
@@ -443,7 +415,7 @@ wkv6_chunk_bf16_kernel(const __nv_bfloat16* __restrict__ r,
     static_assert(RPG * NT == C * PAIRS && RPG <= PAIRS && PAIRS <= 32,
                   "prework");
     const int nc = min(C, S - ch * C);
-    const In x = in_of(ch);
+    const Inputs x = in_of(ch);
     const Ops o = ops_of(ch);
     const int n = 2 * (tid % PAIRS), t0 = (tid / PAIRS) * RPG;
     const auto w_at = [&](int t) {  // padding rows decay by nothing
@@ -474,10 +446,8 @@ wkv6_chunk_bf16_kernel(const __nv_bfloat16* __restrict__ r,
 #pragma unroll
     for (int i = 0; i < RPG; ++i) {
       const int t = t0 + i;
-      const float2 rt = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(x.r + t * N + n));
-      const float2 kt = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(x.k + t * N + n));
+      const float2 rt = load2(x.r + t * N + n);
+      const float2 kt = load2(x.k + t * N + n);
       bonus[i] = rt.x * (un.x * kt.x) + rt.y * (un.y * kt.y);
       const float2 xs[3] = {
           mul(rt, din[i]),
@@ -519,13 +489,12 @@ wkv6_chunk_bf16_kernel(const __nv_bfloat16* __restrict__ r,
   // A of chunk ch pair by pair, into sA's first part (the second zero):
   // for a chunk that decays too fast for the factorised form
   const auto direct_a = [&](int ch) {
-    const In x = in_of(ch);
+    const Inputs x = in_of(ch);
     for (int i = tid; i < C * C; i += NT) {
       const int t = i / C, s = i % C;
       float a = 0.f;
       for (int n = 0; s < t && n < N; ++n) {
-        float p = __bfloat162float(x.r[t * N + n]) *
-                  __bfloat162float(x.k[s * N + n]);
+        float p = to_f(x.r[t * N + n]) * to_f(x.k[s * N + n]);
         for (int j = s + 1; j < t; ++j) p *= x.w[j * N + n];
         a += p;
       }
@@ -596,10 +565,31 @@ wkv6_chunk_bf16_kernel(const __nv_bfloat16* __restrict__ r,
     }
   };
 
+  // Chunk ch's v at this warp's columns m as the B fragments of A v (k =
+  // the chunk's tokens t, two 8-wide m tiles), in VP parts: lane (g, q)
+  // holds v[t][m] at t = 2q, 2q + 1 (e even) or 2q + 8, 2q + 9 (e odd) and m
+  // = m0 + g (e < 2) or m0 + 8 + g.  Permuted, the same registers are the A
+  // fragment of v^T in the state's update.  bf16 v is exact (one part,
+  // by ldmatrix); float32 v is split into PARTS bf16 parts.
+  const auto v_frags = [&](int ch, uint32_t (&vf)[VP][4]) {
+    const In* cv = in_of(ch).v;
+    if constexpr (T::F32) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int t = 2 * q + 8 * (e & 1), m = m0 + g + 8 * (e >> 1);
+        uint32_t parts[VP];
+        split<VP>(to_f(cv[t * VS + m]), to_f(cv[(t + 1) * VS + m]), parts);
+#pragma unroll
+        for (int p = 0; p < VP; ++p) vf[p][e] = parts[p];
+      }
+    } else {
+      ldsm_x4_trans(vf[0], cv + swz<N>(t_row, m0 / 8 + t_chunk));
+    }
+  };
+
   // Chunk ch's products: its output rows, and the state carried past it.
-  const auto products = [&](int ch) {
+  const auto products = [&](int ch, const uint32_t (&vf)[VP][4]) {
     const Ops o = ops_of(ch);
-    const __nv_bfloat16* cv = in_of(ch).v;
     // the state's term (r . d_in) S of the output (rows t, n tiles of this
     // warp's columns m), over the k-steps of n, by order of parts
     float y[K][2][4] = {};
@@ -638,30 +628,29 @@ wkv6_chunk_bf16_kernel(const __nv_bfloat16* __restrict__ r,
         x1 = s + 1 < t ? x1 : (s + 1 == t ? d : 0.f);
         split<K>(x0, x1, af[2 * j + (e >> 1)]);
       }
-    // A v, summed from zero apart from the state's term
+    // A v, summed from zero apart from the state's term: the pairs of
+    // parts (i of A, j of v) with i + j < K, smallest orders first
     float ya[2][4] = {};
-    {
-      uint32_t vb[4];
-      ldsm_x4_trans(vb, cv + swz<N>(t_row, m0 / 8 + t_chunk));
 #pragma unroll
-      for (int p = K - 1; p >= 0; --p) {
-        const uint32_t ap[4] = {af[0][p], af[1][p], af[2][p], af[3][p]};
-        mma_bf16(ya[0], ap, vb[0], vb[1]);
-        mma_bf16(ya[1], ap, vb[2], vb[3]);
+    for (int od = K - 1; od >= 0; --od)
+#pragma unroll
+      for (int j = 0; j < VP && j <= od; ++j) {
+        const int i = od - j;
+        const uint32_t ap[4] = {af[0][i], af[1][i], af[2][i], af[3][i]};
+        mma_bf16(ya[0], ap, vf[j][0], vf[j][1]);
+        mma_bf16(ya[1], ap, vf[j][2], vf[j][3]);
       }
-    }
     // the output rows t < nc, from the accumulators
     const int nc = min(C, S - ch * C);
-    __nv_bfloat16* orow = out + base + (long long)ch * C * ts + m0 + 2 * q;
+    In* orow = out + base + (long long)ch * C * ts + m0 + 2 * q;
 #pragma unroll
     for (int c = 0; c < 2; ++c)
 #pragma unroll
       for (int e = 0; e < 4; e += 2) {
         const int t = g + 8 * (e >> 1);
         if (t < nc)
-          *reinterpret_cast<__nv_bfloat162*>(orow + t * ts + 8 * c) =
-              __floats2bfloat162_rn(ya[c][e] + sum_parts<K>(y, c, e),
-                                    ya[c][e + 1] + sum_parts<K>(y, c, e + 1));
+          store2(orow + t * ts + 8 * c, ya[c][e] + sum_parts<K>(y, c, e),
+                 ya[c][e + 1] + sum_parts<K>(y, c, e + 1));
       }
 
     // S' = d_total . S + (k . d_tail)^T v, as S'^T = S^T d_total + v^T KT.
@@ -670,8 +659,15 @@ wkv6_chunk_bf16_kernel(const __nv_bfloat16* __restrict__ r,
     // state's own accumulators, every mma would round its terms to the
     // state's magnitude, and over 512 tokens that took the served model's
     // large states past 1e-4 of the plain version.
-    uint32_t va[4];
-    ldsm_x4_trans(va, cv + swz<N>(b_row, m0 / 8 + b_chunk));
+    // v^T's A fragments (rows m, k = t), part by part
+    uint32_t va[VP][4];
+#pragma unroll
+    for (int j = 0; j < VP; ++j) {
+      va[j][0] = vf[j][0];
+      va[j][1] = vf[j][2];
+      va[j][2] = vf[j][1];
+      va[j][3] = vf[j][3];
+    }
 #pragma unroll
     for (int p = 0; p < N / 16; ++p) {
       float d[2][4] = {};
@@ -679,8 +675,12 @@ wkv6_chunk_bf16_kernel(const __nv_bfloat16* __restrict__ r,
       for (int i = K - 1; i >= 0; --i) {
         uint32_t kd[4];
         ldsm_x4_trans(kd, o.kd + i * TILE + swz<N>(t_row, 2 * p + t_chunk));
-        mma_bf16(d[0], va, kd[0], kd[1]);
-        mma_bf16(d[1], va, kd[2], kd[3]);
+#pragma unroll
+        for (int j = VP - 1; j >= 0; --j) {
+          if (i + j >= K) continue;
+          mma_bf16(d[0], va[j], kd[0], kd[1]);
+          mma_bf16(d[1], va[j], kd[2], kd[3]);
+        }
       }
 #pragma unroll
       for (int jj = 0; jj < 2; ++jj) {
@@ -696,29 +696,33 @@ wkv6_chunk_bf16_kernel(const __nv_bfloat16* __restrict__ r,
   };
 
   // The pipeline.  Chunk ch + 1's operands are formed while chunk ch's
-  // products run, so at chunk ch three stages are in use: ch's (its v),
-  // ch + 1's (read by prework) and ch + 2's (its copies in flight, one
-  // chunk ahead).  Two barriers a chunk: chunk ch's inputs and operands
-  // are in; A is in.
-  constexpr int AHEAD = T::STAGES - 1;
-#pragma unroll
-  for (int i = 0; i < AHEAD; ++i) stage(i);
-  cp_async_wait<AHEAD - 1>();
+  // products run, and chunk ch + 2's copies are in flight meanwhile.  Two
+  // barriers a chunk: chunk ch's operands and chunk ch + 1's inputs are
+  // in; A is in.  Chunk ch's v goes to registers before the second, so
+  // from then on its stage is free: with three stages chunk ch + 2's copies
+  // are issued after the first barrier (into chunk ch - 1's stage), with
+  // two after the second (into chunk ch's).
+  stage(0);
+  stage(1);
+  cp_async_wait<1>();
   __syncthreads();  // chunk 0 is in, and u
   bool fast = prework(0);
   for (int ch = 0; ch < nch; ++ch) {
-    cp_async_wait<AHEAD - 2>();
+    cp_async_wait<0>();
     // chunk ch's operands and chunk ch + 1's inputs are in; every warp is
     // done with chunk ch - 1's products
     const bool fast_ch = __syncthreads_and(fast);
-    stage(ch + AHEAD);
+    if constexpr (T::STAGES > 2) stage(ch + 2);
     if (fast_ch)  // uniform across the block
       a_part(ch);
     else
       direct_a(ch);
-    __syncthreads();  // A is in
+    uint32_t vf[VP][4];
+    v_frags(ch, vf);
+    __syncthreads();  // A is in; every warp has read chunk ch's inputs
+    if constexpr (T::STAGES == 2) stage(ch + 2);
     if (ch + 1 < nch) fast = prework(ch + 1);
-    products(ch);
+    products(ch, vf);
   }
 
 #pragma unroll
@@ -731,12 +735,12 @@ wkv6_chunk_bf16_kernel(const __nv_bfloat16* __restrict__ r,
     }
 }
 
-// the bf16 kernel's shared memory, above the 48 KB default at N 64
-template <int N>
-cudaError_t prepare_bf16() {
-  return cudaFuncSetAttribute(wkv6_chunk_bf16_kernel<N>,
+// the kernel's shared memory, above the 48 KB default at N 64
+template <typename In, int N>
+cudaError_t prepare() {
+  return cudaFuncSetAttribute(wkv6_chunk_kernel<In, N>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              ChunkTiles<N>::SMEM);
+                              ChunkTiles<In, N>::SMEM);
 }
 
 // f(std::integral_constant<int, N>) for a supported head size
@@ -773,13 +777,29 @@ cudaError_t attrs_of(K kern, int threads, int smem, int* out) {
   return err;
 }
 
+template <typename In, int N>
+cudaError_t launch(const void* r, const void* k, const void* v,
+                   const float* w, const float* u, const float* s0, void* out,
+                   float* s_out, int B, int S, int H, cudaStream_t st) {
+  using T = ChunkTiles<In, N>;
+  const cudaError_t err = prepare<In, N>();
+  if (err != cudaSuccess) return err;
+  const int vec = aligned16(r) && aligned16(k) && aligned16(v) &&
+                  aligned16(w);
+  wkv6_chunk_kernel<In, N><<<B * H * T::SPLIT, T::NT, T::SMEM, st>>>(
+      static_cast<const In*>(r), static_cast<const In*>(k),
+      static_cast<const In*>(v), w, u, s0, static_cast<In*>(out), s_out, S,
+      H, vec);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C entry point, bound with ctypes.  r, k, v (bf16 when is_bf16, else
 // f32), w (f32) and out (r's type) are contiguous (B, S, H, N); u is (H, N)
 // f32; s0 is (B, H, N, N) f32 or null for a zero state; s_out is (B, H, N, N)
-// f32.  S >= 1, N in {16, 32, 64}.  bf16 runs the tensor-core kernel,
-// float32 the FMA kernel.  Launches on `stream` without synchronising and
+// f32.  S >= 1, N in {16, 32, 64}.  Both dtypes run the chunked kernel on
+// the tensor cores.  Launches on `stream` without synchronising and
 // returns cudaGetLastError() (0 on success).
 extern "C" int wkv6_fwd(const void* r, const void* k, const void* v,
                         const float* w, const float* u, const float* s0,
@@ -788,24 +808,10 @@ extern "C" int wkv6_fwd(const void* r, const void* k, const void* v,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return (int)with_n(N, [&](auto n) {
     constexpr int NN = decltype(n)::value;
-    if (is_bf16) {
-      using T = ChunkTiles<NN>;
-      const cudaError_t err = prepare_bf16<NN>();
-      if (err != cudaSuccess) return err;
-      const int vec = aligned16(r) && aligned16(k) && aligned16(v) &&
-                      aligned16(w);
-      wkv6_chunk_bf16_kernel<NN><<<B * H * T::SPLIT, T::NT, T::SMEM, st>>>(
-          static_cast<const __nv_bfloat16*>(r),
-          static_cast<const __nv_bfloat16*>(k),
-          static_cast<const __nv_bfloat16*>(v), w, u, s0,
-          static_cast<__nv_bfloat16*>(out), s_out, S, H, vec);
-    } else {
-      wkv6_kernel<NN><<<B * H, NN * P, 0, st>>>(
-          static_cast<const float*>(r), static_cast<const float*>(k),
-          static_cast<const float*>(v), w, u, s0, static_cast<float*>(out),
-          s_out, S, H);
-    }
-    return cudaGetLastError();
+    return is_bf16 ? launch<__nv_bfloat16, NN>(r, k, v, w, u, s0, out, s_out,
+                                               B, S, H, st)
+                   : launch<float, NN>(r, k, v, w, u, s0, out, s_out, B, S,
+                                       H, st);
   });
 }
 
@@ -816,12 +822,13 @@ extern "C" int wkv6_fwd(const void* r, const void* k, const void* v,
 extern "C" int wkv6_attrs(int is_bf16, int N, int* out) {
   return (int)with_n(N, [&](auto n) {
     constexpr int NN = decltype(n)::value;
-    if (is_bf16) {
-      const cudaError_t err = prepare_bf16<NN>();
+    const auto attrs = [&](auto in) {
+      using In = decltype(in);
+      const cudaError_t err = prepare<In, NN>();
       if (err != cudaSuccess) return err;
-      return attrs_of(wkv6_chunk_bf16_kernel<NN>, ChunkTiles<NN>::NT,
-                      ChunkTiles<NN>::SMEM, out);
-    }
-    return attrs_of(wkv6_kernel<NN>, NN * P, 0, out);
+      return attrs_of(wkv6_chunk_kernel<In, NN>, ChunkTiles<In, NN>::NT,
+                      ChunkTiles<In, NN>::SMEM, out);
+    };
+    return is_bf16 ? attrs(__nv_bfloat16{}) : attrs(float{});
   });
 }

@@ -3,7 +3,7 @@
 ``csrc/flash_attention.cu`` replaces the TPU kernel
 ``src/repro/kernels/flash_attention.py::_flash_kernel``; its header says
 what bounds it on the H100 and how the design answers that (bf16 on the
-tensor cores, float32 on FMAs).  This module only allocates the output,
+tensor cores, float32 on FMAs from register tiles).  This module only allocates the output,
 passes pointers, strides and the current stream through ``ctypes`` and
 raises on a failed launch.  Callers go through ``ops.flash_attention``,
 which validates the inputs first.

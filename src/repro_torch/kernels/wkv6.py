@@ -2,8 +2,8 @@
 
 ``csrc/wkv6.cu`` replaces the TPU kernel
 ``src/repro/kernels/wkv6.py::_wkv6_kernel``; its header says what bounds
-it on the H100 and how the design answers that (bf16 in the chunked form
-on the tensor cores, float32 token by token on FMAs).  This module only
+it on the H100 and how the design answers that (the chunked form on the
+tensor cores, for bf16 and float32 r, k and v alike).  This module only
 allocates the outputs, passes pointers, sizes and the current stream
 through ``ctypes`` and raises on a failed launch.  Callers go through
 ``ops.wkv6``, which validates the inputs first.

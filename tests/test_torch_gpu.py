@@ -1,7 +1,8 @@
 """The hand-written CUDA kernels against their plain versions on the card:
 flash attention at the shapes of tests/test_torch_kernels.py, in float32
-and bfloat16, at the bf16 tensor-core kernel's tile edges (hd 16 to 256,
-nemotron-4-340b's 192 among them), and at hd 256 with a window; the
+and bfloat16, at both kernels' tile edges (hd 16 to 256, nemotron-4-340b's
+192 among them; ragged, windowed, cross-length, strided and unaligned q),
+and at hd 256 with a window; the
 WKV-6 and RG-LRU scans at ragged lengths and widths; the relational
 kernels (splitmix64, sentinel gather, segment reductions) bit for bit
 over every dtype family and edge case, and the relational ops on the
@@ -56,11 +57,13 @@ FLASH_CASES = [  # (B, S, T, H, KV, hd, causal, window), float32 and bf16
     (1, 96, 96, 2, 1, 128, True, 0),
     (1, 130, 130, 4, 1, 192, True, 0),
 ]
-# the bf16 tensor-core kernel's tile edges (BQ 64; BK 64, 32 at hd 192 and
-# 256),
+# the kernels' tile edges (bf16: BQ 64, BK 64, 32 at hd 192 and 256;
+# float32: BQ 64 to 128, BK 16 up to hd 32, else 32), in both dtypes,
 # with q_pad: q sliced out of padded heads ("heads", strides stay 16-byte
-# multiples) or a padded head dim ("hd", strides of hd + 4 elements)
-BF16_EDGES = [
+# multiples) or a padded head dim ("hd", strides of hd + 4 elements; in
+# float32 still 16-byte multiples, so q is also offset by one element,
+# "hd+1", to reach the element-wise staging)
+TILE_EDGES = [
     (2, 100, 130, 4, 2, 64, True, 0, None),        # ragged, S < T
     (1, 100, 300, 4, 2, 128, True, 0, None),       # ragged, S < T, hd 128
     (2, 200, 200, 9, 3, 64, True, 0, None),        # G 3
@@ -81,6 +84,17 @@ BF16_EDGES = [
     (2, 200, 200, 12, 1, 192, True, 0, "hd"),
     (2, 200, 200, 4, 2, 64, True, 0, "heads"),
     (2, 200, 200, 4, 2, 64, True, 0, "hd"),
+    # float32's tiles: BK 16 at hd 16 and 32 (T 15, 17), BQ 128 at hd 16,
+    # 64 and 192 (S 127, 129), a window inside one warp's rows, G 12 at hd
+    # 192, and the element-wise staging at hd 16, 192 and 256
+    (2, 129, 17, 4, 2, 16, False, 0, None),
+    (1, 127, 15, 4, 1, 32, True, 0, None),
+    (2, 129, 129, 6, 3, 64, True, 24, None),
+    (1, 129, 300, 24, 2, 192, True, 0, None),
+    (1, 300, 300, 8, 1, 256, True, 40, None),
+    (2, 100, 130, 4, 2, 16, True, 0, "hd+1"),
+    (1, 130, 130, 24, 2, 192, True, 0, "hd+1"),
+    (1, 70, 70, 16, 1, 256, False, 0, "hd+1"),
 ]
 
 
@@ -88,7 +102,8 @@ BF16_EDGES = [
     "dtype,B,S,T,H,KV,hd,causal,window,q_pad",
     [(dtype, *c, None) for c in FLASH_CASES
      for dtype in (torch.float32, torch.bfloat16)]
-    + [(torch.bfloat16, *c) for c in BF16_EDGES])
+    + [(dtype, *c) for c in TILE_EDGES
+       for dtype in (torch.bfloat16, torch.float32)])
 def test_kernel_matches_plain(cuda, dtype, B, S, T, H, KV, hd, causal,
                               window, q_pad):
     g = torch.Generator(device=cuda).manual_seed(S + T + hd)
@@ -98,6 +113,9 @@ def test_kernel_matches_plain(cuda, dtype, B, S, T, H, KV, hd, causal,
         q = torch.nn.functional.pad(q, (0, 0, 0, 1))[:, :, :H]
     elif q_pad == "hd":
         q = torch.nn.functional.pad(q, (0, 4))[..., :hd]
+    elif q_pad == "hd+1":
+        q = torch.nn.functional.pad(q, (1, 4))[..., 1:hd + 1]
+        assert q.data_ptr() % 16 != 0
     assert q_pad is None or not q.is_contiguous()
     before = ops.launch_counts["flash_attention"]
     out = ops.flash_attention(q, k, v, causal=causal, window=window)
@@ -182,7 +200,7 @@ def at_offset(x, offset):
 # head size (one block a head, a warp per 16 columns of the state)
 WKV_CASES = [(1, 1, 2, 16), (2, 17, 3, 32), (1, 100, 2, 64), (2, 64, 5, 64),
              (1, 1, 2, 64), (1, 15, 2, 64), (2, 16, 3, 64), (1, 33, 2, 32),
-             (2, 47, 2, 16)]
+             (2, 47, 2, 16), (2, 17, 2, 64), (1, 33, 3, 64)]
 
 
 @pytest.mark.parametrize("offset", [0, 1])

@@ -51,8 +51,9 @@ PALLAS_CASES = [(1, 32, 2, 16), (2, 64, 4, 32), (1, 48, 2, 64)]
 DECAYS = ("near 1", "floor", "tiny", "mixed")
 
 
-def inputs(seed, B, S, H, N, decay="pallas"):
-    """r, k, v (float32 arrays of bf16 values), w, u, state.  w: uniform in
+def inputs(seed, B, S, H, N, decay="pallas", f32=False):
+    """r, k, v (float32 arrays of bf16 values, or of any float32 values
+    with ``f32``), w, u, state.  w: uniform in
     [0.05, 0.999] as tests/test_kernels.py draws it, or near 1 (1 - 1e-3
     z), at the model's floor (e^-4 (1 + 0.05 z)), tiny (log-uniform in
     [1e-30, 1e-3]) or mixed (the model's range with one token in twenty
@@ -61,6 +62,8 @@ def inputs(seed, B, S, H, N, decay="pallas"):
     f = np.float32
 
     def bf16(a):
+        if f32:
+            return a.astype(f)
         return torch.from_numpy(a.astype(f)).bfloat16().float().numpy()
     r = bf16(rng.normal(size=(B, S, H, N)) * 0.5)
     k = bf16(rng.normal(size=(B, S, H, N)) * 0.5)
@@ -93,12 +96,14 @@ def mm_bf16(x, y, parts):
     return sum(p @ y for p in split(x, parts=parts))
 
 
-def mm_f32(x, y, parts):
+def mm_f32(x, y, parts, y_parts=None):
     """x @ y for f32 x and y: the products of parts i, j with i + j <
-    parts (six at three parts, three at two)."""
-    xs, ys = split(x, parts=parts), split(y, parts=parts)
+    parts (six at three parts, three at two), y in ``y_parts`` parts (by
+    default as many; at one, y rounded once to bf16)."""
+    y_parts = y_parts or parts
+    xs, ys = split(x, parts=parts), split(y, parts=y_parts)
     return sum(xs[i] @ ys[j] for i in range(parts)
-               for j in range(parts - i))
+               for j in range(min(y_parts, parts - i)))
 
 
 def direct_a(r, k, w):
@@ -115,14 +120,18 @@ def direct_a(r, k, w):
     return A
 
 
-def kernel_twin(r, k, v, w, u, state=None, *, parts=3, kd_parts=None):
-    """The bf16 kernel's arithmetic in plain PyTorch, with ``parts`` bf16
-    parts of every f32 operand (the kernel's ``ChunkTiles::PARTS``; k
-    d_tail takes ``kd_parts``, by default as many).  r, k, v: float32
-    (B, S, H, N) tensors of bf16 values; w float32 (B, S, H, N); u (H, N);
-    state (B, H, N, N) or None.  Returns (out float32 before its bf16
-    cast, state float32) and the number of chunks that took the pair by
-    pair A."""
+def kernel_twin(r, k, v, w, u, state=None, *, parts=3, kd_parts=None,
+                v_parts=None):
+    """The kernel's arithmetic in plain PyTorch, with ``parts`` bf16 parts
+    of every f32 operand (the kernel's ``ChunkTiles::PARTS``; k d_tail
+    takes ``kd_parts``, by default as many).  r, k, v: float32 (B, S, H,
+    N) tensors of bf16 values (the bf16 instantiation), or of any float32
+    values with ``v_parts`` (the float32 one: v is split into v_parts
+    parts too, so at three A v and k d_tail^T v take the six pairs of
+    parts); w float32 (B, S, H, N); u (H,
+    N); state (B, H, N, N) or None.  Returns (out float32 before its cast
+    to r's dtype, state float32) and the number of chunks that took the
+    pair by pair A."""
     kd_parts = kd_parts or parts
     B, S, H, N = r.shape
     st = torch.zeros(B, H, N, N) if state is None else state.clone()
@@ -152,25 +161,30 @@ def kernel_twin(r, k, v, w, u, state=None, *, parts=3, kd_parts=None):
                         direct_a(rc, kc, wc))
         A = torch.tril(A, -1) + torch.diag_embed((rc * (u[None, :, None] *
                                                         kc)).sum(-1))
-        outs.append((mm_bf16(A, vc, parts) + mm_f32(q1, st, parts))
-                    [:, :, :nc])
-        st = st * din[C][..., None] + mm_bf16(kd.transpose(-1, -2), vc,
-                                              kd_parts)
+        def mm_v(x, p):
+            return mm_bf16(x, vc, p) if v_parts is None \
+                else mm_f32(x, vc, p, v_parts)
+        outs.append((mm_v(A, parts) + mm_f32(q1, st, parts))[:, :, :nc])
+        st = st * din[C][..., None] + mm_v(kd.transpose(-1, -2), kd_parts)
     return torch.cat(outs, 2).transpose(1, 2), st, slow
 
 
-def twin(arrays, parts=3, kd_parts=None):
-    """The twin on numpy inputs: (out rounded to bf16, state) as float32
-    numpy arrays, and the number of chunks that took the pair by pair A."""
+def twin(arrays, parts=3, kd_parts=None, v_parts=None):
+    """The twin on numpy inputs: (out rounded to bf16, or float32 with
+    ``v_parts``, state) as float32 numpy arrays, and the number of chunks
+    that took the pair by pair A."""
     out, st, slow = kernel_twin(*(None if a is None else torch.from_numpy(a)
                                   for a in arrays), parts=parts,
-                                kd_parts=kd_parts)
-    return out.bfloat16().float().numpy(), st.numpy(), slow
+                                kd_parts=kd_parts, v_parts=v_parts)
+    if v_parts is None:
+        out = out.bfloat16().float()
+    return out.numpy(), st.numpy(), slow
 
 
-def jax_call(fn, arrays, **kw):
+def jax_call(fn, arrays, f32=False, **kw):
     r, k, v, w, u, state = arrays
-    out, st = fn(*(jnp.asarray(a, jnp.bfloat16) for a in (r, k, v)),
+    dtype = jnp.float32 if f32 else jnp.bfloat16
+    out, st = fn(*(jnp.asarray(a, dtype) for a in (r, k, v)),
                  jnp.asarray(w), jnp.asarray(u),
                  None if state is None else jnp.asarray(state), **kw)
     return np.asarray(out, np.float32), np.asarray(st, np.float32)
@@ -296,3 +310,87 @@ def test_three_parts_round_the_output_as_the_f32_oracle_does():
         close(out, oracle, OUT_TOL)
     assert 0 < misrounded(out3) <= 2 * misrounded(oracle)
     assert misrounded(out2) > 8 * misrounded(oracle)
+
+
+# --------------------------------------------------------------------------
+# the float32 instantiation: r, k, v and the output in float32
+# --------------------------------------------------------------------------
+
+F32_TOL = 1e-4
+
+
+@functools.lru_cache(maxsize=None)
+def pallas_f32_case(B, S, H, N, with_state):
+    arrays = inputs(B * S + N + 1, B, S, H, N, f32=True)
+    if not with_state:
+        arrays[5] = None
+    return (arrays, jax_call(jops.wkv6, arrays, f32=True, chunk=16),
+            jax_call(jref.wkv6_ref, arrays, f32=True))
+
+
+@pytest.mark.parametrize("with_state", [True, False])
+@pytest.mark.parametrize("B,S,H,N", PALLAS_CASES)
+def test_f32_twin_matches_pallas_and_oracle(B, S, H, N, with_state):
+    arrays, pallas, oracle = pallas_f32_case(B, S, H, N, with_state)
+    out, st, slow = twin(arrays, v_parts=3)
+    assert slow == 0 and np.isfinite(out).all()
+    for want, want_st in (pallas, oracle):
+        close(out, want, F32_TOL)
+        close(st, want_st, F32_TOL)
+
+
+@pytest.mark.parametrize("decay", DECAYS)
+@pytest.mark.parametrize("S", [1, C - 1, C, C + 1, 2 * C + 1])
+def test_f32_twin_matches_oracle_at_the_edges(S, decay):
+    arrays = inputs(S + 1, 2, S, 2, 64, decay, f32=True)
+    out, st, slow = twin(arrays, v_parts=3)
+    want, want_st = jax_call(jref.wkv6_ref, arrays, f32=True)
+    assert out.shape == want.shape and np.isfinite(out).all()
+    close(out, want, F32_TOL)
+    close(st, want_st, F32_TOL)
+    # the model's floor keeps every chunk factorised; w down to 1e-30 not
+    if decay in ("near 1", "floor"):
+        assert slow == 0
+    elif decay == "tiny":
+        assert slow > 0
+
+
+def test_f32_v_needs_its_parts():
+    """w near 1 over 512 tokens, float32 r, k, v: with v split into three
+    parts the twin holds the output and the state to 1e-4; with v taken
+    as its bf16 rounding (the bf16 instantiation's one part) the state does
+    not hold."""
+    arrays = inputs(6, 1, 512, 2, 64, "near 1", f32=True)
+    want, want_st = jax_call(jref.wkv6_ref, arrays, f32=True)
+    out, st, _ = twin(arrays, v_parts=3)
+    close(out, want, F32_TOL)
+    close(st, want_st, F32_TOL)
+    _, st1, _ = twin(arrays, v_parts=1)
+    assert not np.allclose(st1, want_st, rtol=F32_TOL, atol=F32_TOL)
+
+
+def test_f32_large_state_misrounds_no_more_than_the_oracle():
+    """A large state (w in [0.97, 1), r, k, v of scale 2 over 512 tokens,
+    as test_three_parts_round_the_output_as_the_f32_oracle_does builds
+    one) in float32, where the outputs' sums cancel terms near 1000 and
+    float32 itself is off by about 1e-4 of 1: no more of the twin's
+    outputs than of the oracle's are not the float64 value correctly
+    rounded to float32, and the twin's largest distance from the float64
+    value is within twice the oracle's."""
+    rng = np.random.default_rng(12)
+    shape = (1, 512, 2, 64)
+    r, k, v = (rng.normal(size=shape).astype(np.float32) * 2
+               for _ in range(3))
+    w = (1.0 - 0.03 * rng.uniform(size=shape)).astype(np.float32)
+    u = (rng.normal(size=shape[2:]) * 0.1).astype(np.float32)
+    arrays = [r, k, v, w, u, None]
+    exact = float64_ref(arrays).astype(np.float32)
+    oracle, _ = jax_call(jref.wkv6_ref, arrays, f32=True)
+    out, _, _ = twin(arrays, v_parts=3)
+    exact64 = float64_ref(arrays)
+    print(f"misrounded: twin {int((out != exact).sum())}, oracle "
+          f"{int((oracle != exact).sum())} of {out.size}; largest distance "
+          f"from float64: twin {np.abs(out - exact64).max()!r}, oracle "
+          f"{np.abs(oracle - exact64).max()!r}")
+    assert int((out != exact).sum()) <= int((oracle != exact).sum())
+    assert np.abs(out - exact64).max() <= 2 * np.abs(oracle - exact64).max()

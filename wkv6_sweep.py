@@ -1,18 +1,22 @@
-"""Variants of the bf16 WKV-6 kernel on one card: build, check, time, and
+"""Variants of the WKV-6 kernel on one card: build, check, time, and
 their output error on a served rwkv6-3b prefill.
 
-    python3 wkv6_sweep.py [--extra NAME=PATH ...] [--served]
+    python3 wkv6_sweep.py [--dtype bfloat16] [--extra NAME=PATH ...] [--served]
+    python3 wkv6_sweep.py --dtype float32 [--variants kernel,...] [--extra ...]
 
 Each variant is ``src/repro_torch/kernels/csrc/wkv6.cu`` with one design
 constant of ``ChunkTiles`` changed (``VARIANTS``), or another source with
 the same C entry point ``wkv6_fwd`` (``--extra``, such as an earlier
 commit's ``wkv6.cu``).  All are built together, one nvcc each, into the
-ignored ``kernels/_build/sweep/``.  Each is held to ``ref.wkv6_ref`` at the
-bounds of chip_smoke.py phase 7 (a failure is printed, not fatal: a
-variant may trade accuracy away) and timed at rwkv6-3b's serving shape
-(B 8, S 512, H 40, N 64, bf16 r, k, v) and at one batch row, from
-CUDA-graph replays, forward over the variants and then backward, so that
-drift on the card falls on every side.
+ignored ``kernels/_build/sweep/``; ptxas's registers and spills of every
+kernel at N 64 are printed.  Each is held to ``ref.wkv6_ref`` at the
+bounds of chip_smoke.py phase 7 for the dtype (a failure is printed, not
+fatal: a variant may trade accuracy away) and timed at rwkv6-3b's serving
+shape (B 8, S 512, H 40, N 64; r, k, v in ``--dtype``) and at one batch
+row, from CUDA-graph replays, forward over the variants and then
+backward, so that drift on the card falls on every side; in float32 the
+plain version is timed beside them, with the bound of
+``kernels/costs.py`` for the float32 inputs.
 
 With ``--served``, rwkv6-3b at full width (random weights from seed 0, the
 prompts of chip_smoke.py phase 8) runs one bf16 prefill in which every wkv6
@@ -39,7 +43,7 @@ import numpy as np
 import torch
 
 import chip_smoke as cs
-from repro_torch.kernels import build, ops, ref
+from repro_torch.kernels import build, costs, ops, ref
 
 # name -> (text in wkv6.cu, its replacement); "kernel" is the source as is
 VARIANTS = {
@@ -47,9 +51,10 @@ VARIANTS = {
     # each head's columns over two blocks (640 blocks at the serving shape)
     "two_blocks": ("static constexpr int NV = N;",
                    "static constexpr int NV = N >= 32 ? N / 2 : N;"),
-    # a fourth input stage: copies two chunks ahead
-    "stages4": ("static constexpr int STAGES = 3;",
-                "static constexpr int STAGES = 4;"),
+    # a fourth input stage in bf16, a third in float32: copies two chunks
+    # ahead
+    "stages_plus1": ("static constexpr int STAGES = F32 ? 2 : 3;",
+                     "static constexpr int STAGES = F32 ? 3 : 4;"),
     # two bf16 parts of each f32 operand (three products a pair of them)
     "two_parts": ("static constexpr int PARTS = 3;",
                   "static constexpr int PARTS = 2;"),
@@ -60,10 +65,12 @@ CASES = [(dict(B=2, S=S, H=3, N=64), decay)
                                              "mixed")]
 
 
-def sources(extra) -> dict:
+def sources(extra, names) -> dict:
     text = (build.CSRC / "wkv6.cu").read_text()
     out = {}
     for name, edit in VARIANTS.items():
+        if name not in names:
+            continue
         if edit is not None:
             assert text.count(edit[0]) == 1, f"{name}: {edit[0]!r} not found"
         out[name] = text if edit is None else text.replace(*edit)
@@ -82,11 +89,10 @@ def compile_one(name: str, text: str):
                           capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {name}:\n{proc.stderr}")
-    # ptxas's lines for the bf16 kernel's N 64 instantiation
-    lines = proc.stderr.splitlines()
-    info = [f"{lines[i - 1].strip()}; {ln.strip()}"
-            for i, ln in enumerate(lines) if "Used" in ln and i > 1
-            and "bf16" in lines[i - 2] and "Li64E" in lines[i - 2]]
+    # ptxas's report of each kernel's N 64 instantiation
+    info = [{k: r.get(k) for k in ("kernel", "registers", "smem",
+                                   "spill_stores", "spill_loads")}
+            for r in build.parse_ptxas(proc.stderr) if "Li64E" in r["kernel"]]
     fn = ctypes.CDLL(str(lib)).wkv6_fwd
     fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + \
         [ctypes.c_void_p]
@@ -113,29 +119,28 @@ def caller(fn):
     return call
 
 
-def check(name, call) -> None:
+def check(name, call, dtype) -> None:
     g = torch.Generator(device="cuda").manual_seed(7)
     worst, fails = [0.0, 0.0], []
+    tol = cs.WKV_TOL[dtype]
     for shp, decay in CASES:
-        r, k, v, w, u, st = cs.wkv_inputs(g, dtype=torch.bfloat16,
-                                          decay=decay, **shp)
+        r, k, v, w, u, st = cs.wkv_inputs(g, dtype=dtype, decay=decay, **shp)
         out, s_out = call(r, k, v, w, u, st)
         want, want_s = ref.wkv6_ref(r, k, v, w, u, st)
-        tol = cs.WKV_TOL[torch.bfloat16]
         e = ((out.float() - want.float()).abs().max().item(),
              (s_out - want_s).abs().max().item())
         worst = [max(a, b) for a, b in zip(worst, e)]
         if not (torch.allclose(out.float(), want.float(), rtol=tol, atol=tol)
                 and torch.allclose(s_out, want_s, rtol=1e-4, atol=1e-4)):
             fails.append(f"S {shp['S']} {decay}: out {e[0]!r} state {e[1]!r}")
-    print(f"{name}: {len(CASES)} cases against wkv6_ref, max_abs_err out "
-          f"{worst[0]!r} state {worst[1]!r}; outside the bounds "
-          f"(2e-2 out, 1e-4 state): {fails or 'none'}")
+    print(f"{name}: {len(CASES)} {str(dtype)[6:]} cases against wkv6_ref, "
+          f"max_abs_err out {worst[0]!r} state {worst[1]!r}; outside the "
+          f"bounds ({tol} out, 1e-4 state): {fails or 'none'}")
 
 
-def times(calls) -> None:
+def times(calls, dtype) -> None:
     g = torch.Generator(device="cuda").manual_seed(8)
-    r, k, v, w, u, _ = cs.wkv_inputs(g, dtype=torch.bfloat16, decay="model",
+    r, k, v, w, u, _ = cs.wkv_inputs(g, dtype=dtype, decay="model",
                                      **cs.WKV_SHAPE)
     B, _, H, N = r.shape
     st = torch.zeros(B, H, N, N, device="cuda")
@@ -148,9 +153,18 @@ def times(calls) -> None:
         one[name] += cs.time_ms(lambda: call(r[:1], k[:1], v[:1], w[:1], u,
                                              st[:1]))
     smi = cs.smi_line()
+    kind = str(dtype)[6:]
     for name in calls:
-        print(f"{name}: B 8 S 512 H 40 N 64 bf16 {cs.spread(full[name])}; "
+        print(f"{name}: B 8 S 512 H 40 N 64 {kind} {cs.spread(full[name])}; "
               f"one batch row {cs.spread(one[name])} [{smi}]")
+    if dtype == torch.float32:
+        plain = cs.time_ms(lambda: ref.wkv6_ref(r, k, v, w, u, st), iters=2,
+                           reps=3)
+        flops, nbytes, _ = costs.wkv6(r, k, v, w, u, st)
+        bound_ms, by = cs.bound(nbytes, flops, cs.F32_FLOP_PER_S)
+        print(f"plain (float32): {cs.spread(plain)}; bound {bound_ms!r} ms "
+              f"by {by} ({nbytes} bytes, {flops} flop; operations at "
+              f"{cs.F32_FLOP_PER_S:.3g}/s) [{smi}]")
 
 
 def served(calls) -> None:
@@ -212,25 +226,30 @@ def served(calls) -> None:
 
 def main() -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--dtype", choices=("bfloat16", "float32"),
+                   default="bfloat16", help="r, k and v's dtype")
     p.add_argument("--extra", action="append", default=[],
                    metavar="NAME=PATH", help="another wkv6.cu to compare")
+    p.add_argument("--variants", default=",".join(VARIANTS),
+                   help="comma-separated names of VARIANTS to build")
     p.add_argument("--served", action="store_true",
                    help="also the per-launch error in a served prefill")
     args = p.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("wkv6_sweep.py needs a CUDA card")
+    dtype = getattr(torch, args.dtype)
     cs.phase_device()
-    srcs = sources(args.extra)
+    srcs = sources(args.extra, args.variants.split(","))
     with ThreadPoolExecutor(len(srcs)) as pool:
         built = dict(zip(srcs, pool.map(compile_one, srcs, srcs.values())))
     calls = {}
     for name, (fn, info) in built.items():
-        print(f"{name}: built; ptxas for the bf16 kernel at N 64: {info}")
+        print(f"{name}: built; ptxas for the kernels at N 64: {info}")
         calls[name] = caller(fn)
     for name, call in calls.items():
-        check(name, call)
-    times(calls)
-    if args.served:
+        check(name, call, dtype)
+    times(calls, dtype)
+    if args.served and dtype == torch.bfloat16:
         served(calls)
     print(f"sweep done: {list(calls)}")
 
